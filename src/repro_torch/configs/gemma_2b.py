@@ -1,0 +1,19 @@
+# Port of repro/configs/gemma_2b.py: the same data, imports rewritten to repro_torch.
+"""gemma-2b — dense, GeGLU, head_dim=256, MQA (kv=1). [arXiv:2403.08295]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b",
+    family="dense",
+    n_layers=18,
+    d_model=2048,
+    n_heads=8,
+    n_kv_heads=1,
+    head_dim=256,
+    d_ff=16384,
+    vocab=256000,
+    act="gelu",
+    scale_embeddings=True,
+    rope_theta=10000.0,
+)

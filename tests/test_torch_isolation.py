@@ -1,0 +1,103 @@
+"""The port stands alone and never falls back silently.
+
+``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of the
+JAX package ``repro``, and the port's entry points refuse to run without a
+Hopper card unless the caller asks for the CPU."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import _device
+from repro_torch._device import resolve_device
+from repro_torch.core.scoring import make_torch_score_fn
+from repro_torch.launch import schedule
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|from\s+repro(\.|\s+import)"
+    r"|import\s+repro(\.|\s*$|\s*,|\s+as\b))", re.MULTILINE)
+
+
+def test_source_scan_finds_no_jax_or_reference_import():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_source_scan_pattern_catches_each_form():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                 "    from repro.core.job import Job", "import repro.core",
+                 "from repro import core", "import repro"):
+        assert FORBIDDEN.search(line), line
+    for line in ("from repro_torch.core import job", "import repro_torch",
+                 "# see repro.core.job", "import jaxlib_free"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_subprocess_simulation_loads_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "from repro_torch.launch.schedule import main\n"
+        "stats = main(['--device', 'cpu', '--jobs', '60', '--pools', '1', "
+        "'2', '2', '--serving', 'batched', '--streaming', '2.0', '2.5', "
+        "'--v2'])\n"
+        "assert stats['jobs'] == 60, stats\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ISOLATED"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_without_cuda_the_default_device_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(dev)
+    for v2 in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_torch_score_fn(v2=v2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        schedule.main(["--jobs", "5"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_a_card_that_is_not_hopper_is_refused(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda dev=None: (8, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda dev=None: "an sm_80 card")
+    with pytest.raises(RuntimeError, match=r"capability \(8, 0\)"):
+        _device.resolve_device()
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_entry_point_runs_on_the_cpu_when_asked(capsys):
+    stats = schedule.main(["--device", "cpu", "--jobs", "40", "--pools",
+                           "1", "2", "2"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["jobs"] == stats["jobs"] == 40
+    assert printed["device"] == "cpu"
