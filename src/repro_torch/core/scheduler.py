@@ -126,13 +126,15 @@ class SynergAI(Policy):
         # matrices *from* the cache, so it always carries one; the
         # device-resident backend carries the device-mirrored subclass
         if self._device:
-            raise NotImplementedError(
-                "the device-resident backend (device_cache, the "
-                "scheduler_tick kernel and DeviceScoreCache) is not ported "
-                "yet: it is port slice 2 in ROADMAP.md")
-        self.cache: Optional[ScoreCache] = (
-            ScoreCache(profile=self.profile) if self._fused
-            or (incremental and score_fn is None) else None)
+            from repro_torch.core.devicecache import DeviceScoreCache
+            self.cache: Optional[ScoreCache] = DeviceScoreCache(
+                profile=self.profile,
+                bj=getattr(score_fn, "bj", 128),
+                device=getattr(score_fn, "device", None))
+        else:
+            self.cache = (
+                ScoreCache(profile=self.profile) if self._fused
+                or (incremental and score_fn is None) else None)
 
     # -- online re-characterization hooks (inert without one) ----------
 

@@ -13,6 +13,10 @@ is a drop-in replacement for the default numpy path.
 (``scheduler_score_v2``: depth penalty, phase slicing and TTFT/TPOT gates in
 the same pass), which ``SynergAI._schedule_fused`` calls with the cached solo
 matrices and the per-tick cluster vectors.
+``make_torch_score_fn(device_cache=True)`` returns the device-resident
+backend: a marker from which ``SynergAI`` builds a
+``repro_torch.core.devicecache.DeviceScoreCache`` on the marker's device, and
+every tick then runs through ``scheduler_tick``.
 
 ``device=None`` means the card and raises without one; ``device="cpu"`` runs
 the kernels' plain PyTorch versions.  Both score in float32, so a budget that
@@ -61,8 +65,11 @@ def _new_seconds() -> dict:
     return {"build": 0.0, "h2d": 0.0, "kernel": 0.0, "d2h": 0.0}
 
 
-def make_torch_score_fn(v2: bool = False, device=None):
+def make_torch_score_fn(v2: bool = False, device=None,
+                        device_cache: bool = False):
     dev = resolve_device(device)
+    if device_cache:
+        return _make_device_marker(dev)
     if v2:
         return _make_fused_score_fn(dev)
 
@@ -99,6 +106,23 @@ def make_torch_score_fn(v2: bool = False, device=None):
     score_fn.seconds = _new_seconds()
     score_fn.calls = score_fn.rows = 0
     return score_fn
+
+
+def _make_device_marker(dev: torch.device):
+    """The device-resident backend.  Not a scoring callable: ``SynergAI``
+    reads its attributes to build a ``DeviceScoreCache`` (row pools resident
+    on ``device``, the job axis padded to a power-of-two multiple of
+    ``bj``), and no host-side score function ever runs."""
+    def device_score(*_a, **_k):
+        raise TypeError(
+            "make_torch_score_fn(device_cache=True) returns a backend "
+            "marker consumed by SynergAI, not a callable score_fn — the "
+            "tick runs through DeviceScoreCache.device_tick")
+    device_score.device_cache = True
+    device_score.takes_profile = True
+    device_score.bj = 128
+    device_score.device = dev
+    return device_score
 
 
 def _make_fused_score_fn(dev: torch.device):

@@ -1,6 +1,7 @@
-"""SynergAI Eq. 2-4 scoring on hand-written CUDA kernels (v1 + fused v2).
+"""SynergAI Eq. 2-4 scoring and the device-resident tick on hand-written
+CUDA kernels.
 
-The counterpart of ``repro/kernels/scheduler_score.py`` (v1 and v2 halves):
+The counterpart of ``repro/kernels/scheduler_score.py``:
 
     T_est[j, w]   = preproc[j, w] + q[j] / qps[j, w]          (Eq. 2)
     acceptable    = T_rem[j] >= T_est[j, w]                   (Eq. 3)
@@ -11,16 +12,24 @@ The counterpart of ``repro/kernels/scheduler_score.py`` (v1 and v2 halves):
 disaggregated pools, the per-worker queue-depth penalty and the TTFT/TPOT
 streaming gates, over the cached solo matrices (``inf`` = infeasible).
 
+``scheduler_tick`` is one whole decision of the device-resident path
+(``repro_torch.core.devicecache``): ``tick_score`` gathers the live rows from
+the resident pools and scores them with the v2 recipe plus the placement
+cost, ``tick_order`` ranks the jobs by (doomed, urgency), and
+``greedy_place`` walks them, each taking its cheapest still-open worker.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) for tensors on the
-CPU, and launches its CUDA kernel (``csrc/scheduler_score.cu``) for tensors
-on the card; there is no other path.  ``wrapper.launches`` counts kernel
-launches.  The kernels' source note gives the TPU kernel each replaces, the
-bound (bytes: v1 moves 13 B per cell, v2 17 B) and the f32 parity rules.
+CPU, and launches its CUDA kernel (``csrc/scheduler_score.cu`` for v1 and v2,
+``csrc/scheduler_tick.cu`` for the tick) for tensors on the card; there is no
+other path.  ``wrapper.launches`` counts kernel launches.  The kernels'
+source notes give the TPU kernel each replaces, the bound and the f32 parity
+rules.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -44,21 +53,33 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(fn_name, *args):
-    """Launch ``fn_name`` from the built library on the current stream;
-    raise if CUDA refused the launch."""
-    lib = _build.load("scheduler_score")
-    if lib.synergai_error_string.restype is not ctypes.c_char_p:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.synergai_score_v1.argtypes = [P] * 8 + [I, I, P]
-        lib.synergai_score_v2.argtypes = [P] * 15 + [I, I, P]
-        lib.synergai_score_v1.restype = lib.synergai_score_v2.restype = I
-        lib.synergai_error_string.argtypes = [I]
-        lib.synergai_error_string.restype = ctypes.c_char_p
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library -> (C function -> argtypes, error-string function)
+_SIGNATURES = {
+    "scheduler_score": ({"synergai_score_v1": [_P] * 8 + [_I, _I, _P],
+                         "synergai_score_v2": [_P] * 15 + [_I, _I, _P]},
+                        "synergai_error_string"),
+    "scheduler_tick": ({"synergai_tick_score": [_P] * 20 + [_I] * 5 + [_P],
+                        "synergai_greedy_place": [_P] * 5 + [_I, _I, _P]},
+                       "synergai_tick_error_string"),
+}
+
+
+def _launch(lib_name, fn_name, *args):
+    """Launch ``fn_name`` from the built library ``lib_name`` on the
+    current stream; raise if CUDA refused the launch."""
+    lib = _build.load(lib_name)
+    functions, err_name = _SIGNATURES[lib_name]
+    err = getattr(lib, err_name)
+    if err.restype is not ctypes.c_char_p:
+        for name, argtypes in functions.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = _I
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
     rc = getattr(lib, fn_name)(*args)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.synergai_error_string(rc).decode()}")
+        raise RuntimeError(f"{fn_name} launch failed: {err(rc).decode()}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +123,11 @@ def scheduler_score(qps, preproc, queries, t_remaining):
     if J:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _launch("synergai_score_v1", *(x.data_ptr() for x in (
-                qps, preproc, queries, t_remaining, est, best, urg, acc)),
-                J, W, stream)
+            _launch("scheduler_score", "synergai_score_v1",
+                    *(x.data_ptr() for x in (qps, preproc, queries,
+                                             t_remaining, est, best, urg,
+                                             acc)),
+                    J, W, stream)
         scheduler_score.launches += 1
     return est, best, urg, acc
 
@@ -172,12 +195,215 @@ def scheduler_score_v2(t_solo, prefill, decode, t_remaining, pen, phase,
     if J:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _launch("synergai_score_v2", *(x.data_ptr() for x in (
-                t_solo, prefill, decode, t_remaining, pen, phase, has_ttft,
-                has_tpot, ttft_rem, tpot_qos, dtok, t_eff, acc, urg, doom)),
-                J, W, stream)
+            _launch("scheduler_score", "synergai_score_v2",
+                    *(x.data_ptr() for x in (
+                        t_solo, prefill, decode, t_remaining, pen, phase,
+                        has_ttft, has_tpot, ttft_rem, tpot_qos, dtok, t_eff,
+                        acc, urg, doom)),
+                    J, W, stream)
         scheduler_score_v2.launches += 1
     return t_eff, acc, urg, doom
 
 
 scheduler_score_v2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the device-resident tick: gather + score, urgency order, greedy walk
+
+
+def _tick_checks(pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem,
+                 ttft_rem, tpot_qos, dtok, has_ttft, has_tpot, phase, ekey,
+                 emask, pen, busy_wait, escale, use_energy):
+    cap, Wp = pool_t.shape
+    Jp = slots.shape[0]
+    dev = pool_t.device
+    pools = [("pool_t", pool_t), ("pool_pre", pool_pre),
+             ("pool_dec", pool_dec)]
+    if use_energy:
+        pools.append(("pool_ene", pool_ene))
+    for name, x in pools:
+        _check(name, x, (cap, Wp), _F32, dev)
+    for name, x in (("t_rem", t_rem), ("ttft_rem", ttft_rem),
+                    ("tpot_qos", tpot_qos), ("dtok", dtok)):
+        _check(name, x, (Jp,), _F32, dev)
+    for name, x in (("slots", slots), ("has_ttft", has_ttft),
+                    ("has_tpot", has_tpot), ("phase", phase),
+                    ("ekey", ekey)):
+        _check(name, x, (Jp,), _I32, dev)
+    _check("emask", emask, (emask.shape[0], Wp), torch.bool, dev)
+    for name, x in (("pen", pen), ("busy_wait", busy_wait),
+                    ("escale", escale)):
+        _check(name, x, (Wp,), _F32, dev)
+    if cap == 0 or Wp == 0 or emask.shape[0] == 0:
+        raise ValueError("scheduler_tick needs a non-empty pool and emask")
+    return Jp, cap, Wp, dev
+
+
+def tick_score_plain(pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem,
+                     ttft_rem, tpot_qos, dtok, has_ttft, has_tpot, phase,
+                     ekey, emask, pen, busy_wait, escale, use_energy=False):
+    """The plain PyTorch version of ``tick_score`` (same f32 math)."""
+    idx = slots.clamp(0, pool_t.shape[0] - 1).long()
+    t_eff, acc, urg, doom = scheduler_score_v2_plain(
+        pool_t[idx], pool_pre[idx], pool_dec[idx], t_rem, pen, phase,
+        has_ttft, has_tpot, ttft_rem, tpot_qos, dtok)
+    doomed = (doom != 0)[:, None]
+    feas = torch.isfinite(t_eff)
+    costd = t_eff + busy_wait
+    best = torch.where(feas, costd, torch.inf).amin(dim=1, keepdim=True)
+    eligd = feas & (t_eff <= 1.5 * best)
+    cost = torch.where(doomed, costd, t_eff)
+    elig = torch.where(doomed, eligd, acc != 0)
+    if use_energy:
+        cost = cost + pool_ene[idx] * escale
+    key = ekey.clamp(0, emask.shape[0] - 1).long()
+    elig = elig & emask[key] & (slots >= 0)[:, None]
+    return torch.where(elig, cost, torch.inf), urg, doom
+
+
+def tick_score(pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem, ttft_rem,
+               tpot_qos, dtok, has_ttft, has_tpot, phase, ekey, emask, pen,
+               busy_wait, escale, use_energy=False):
+    """The scoring half of ``scheduler_tick``: gather each row's pool rows
+    by ``slots`` (-1 = padding, clipped to row 0) and score them with the v2
+    recipe plus the placement-cost prep.  Returns (ranked [Jp, Wp] f32 —
+    the ranking cost where eligible, else inf; urgency [Jp] f32; doomed
+    [Jp] i8)."""
+    Jp, cap, Wp, dev = _tick_checks(
+        pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem, ttft_rem,
+        tpot_qos, dtok, has_ttft, has_tpot, phase, ekey, emask, pen,
+        busy_wait, escale, use_energy)
+    if dev.type == "cpu":
+        return tick_score_plain(pool_t, pool_pre, pool_dec, pool_ene, slots,
+                                t_rem, ttft_rem, tpot_qos, dtok, has_ttft,
+                                has_tpot, phase, ekey, emask, pen, busy_wait,
+                                escale, use_energy)
+    if dev.type != "cuda":
+        raise ValueError(f"tick_score runs on cpu or cuda, not {dev}")
+    ranked = torch.empty((Jp, Wp), dtype=_F32, device=dev)
+    urg = torch.empty((Jp,), dtype=_F32, device=dev)
+    doom = torch.empty((Jp,), dtype=torch.int8, device=dev)
+    if Jp:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _launch("scheduler_tick", "synergai_tick_score",
+                    *(x.data_ptr() for x in (
+                        pool_t, pool_pre, pool_dec)),
+                    pool_ene.data_ptr() if use_energy else None,
+                    *(x.data_ptr() for x in (
+                        slots, t_rem, ttft_rem, tpot_qos, dtok, has_ttft,
+                        has_tpot, phase, ekey, emask, pen, busy_wait,
+                        escale, ranked, urg, doom)),
+                    Jp, cap, Wp, emask.shape[0], int(bool(use_energy)),
+                    stream)
+        tick_score.launches += 1
+    return ranked, urg, doom
+
+
+tick_score.launches = 0
+
+
+def _sort_key(x):
+    """int32 keys in the order ``jnp.lexsort`` sorts float32 ``x``: -0.0
+    equal to 0.0, every NaN equal and after +inf."""
+    bits = torch.where(x == 0.0, 0.0, x).view(_I32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.where(torch.isnan(x), 0x7FC00000, key)
+
+
+def tick_order(urg, doom, slots):
+    """The placement order of ``scheduler_tick``: a stable lexsort by
+    (doomed, urgency) with padding rows (slot -1) last, as ``jnp.lexsort``
+    orders them.  One stable sort of an int64 key: the doom key (0, 1, or 2
+    for padding) above the urgency's order-preserving int32 image."""
+    valid = slots >= 0
+    doomkey = torch.where(valid, doom.to(torch.int64), 2)
+    urgkey = torch.where(valid, urg, torch.inf)
+    key = doomkey * (1 << 32) + (_sort_key(urgkey).to(torch.int64)
+                                 + (1 << 31))
+    return torch.sort(key, stable=True).indices.to(_I32)
+
+
+def greedy_place_plain(ranked, order, slots, open0):
+    """The plain PyTorch version of ``greedy_place``."""
+    assign = torch.full((ranked.shape[0],), -1, dtype=_I32,
+                        device=ranked.device)
+    open_slot = open0.clone()
+    n_open = int(open_slot.sum())
+    valid = (slots >= 0).tolist()
+    for ji in order.tolist():
+        if n_open == 0 or not valid[ji]:
+            break
+        cand = torch.where(open_slot, ranked[ji], torch.inf)
+        wi = int(torch.argmin(cand))
+        if math.isfinite(float(cand[wi])):
+            assign[ji] = wi
+            open_slot[wi] = False
+            n_open -= 1
+    return assign
+
+
+def greedy_place(ranked, order, slots, open0):
+    """The placement half of ``scheduler_tick``: walk the jobs in
+    ``order``; each takes the lowest-index argmin of its ``ranked`` row over
+    the still-open workers if that is finite (a NaN wins the argmin and
+    places nothing).  Stops once no worker is open or at the first padded
+    row (slot -1).  Returns assign [Jp] i32 (worker index or -1)."""
+    Jp, Wp = ranked.shape
+    dev = ranked.device
+    _check("ranked", ranked, (Jp, Wp), _F32, dev)
+    _check("order", order, (Jp,), _I32, dev)
+    _check("slots", slots, (Jp,), _I32, dev)
+    _check("open0", open0, (Wp,), torch.bool, dev)
+    if Wp == 0:
+        raise ValueError("greedy_place needs at least one worker")
+    if dev.type == "cpu":
+        return greedy_place_plain(ranked, order, slots, open0)
+    if dev.type != "cuda":
+        raise ValueError(f"greedy_place runs on cpu or cuda, not {dev}")
+    assign = torch.empty((Jp,), dtype=_I32, device=dev)
+    if Jp:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _launch("scheduler_tick", "synergai_greedy_place",
+                    *(x.data_ptr() for x in (ranked, order, slots, open0,
+                                             assign)),
+                    Jp, Wp, stream)
+        greedy_place.launches += 1
+    return assign
+
+
+greedy_place.launches = 0
+
+
+def scheduler_tick_plain(pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem,
+                         ttft_rem, tpot_qos, dtok, has_ttft, has_tpot, phase,
+                         ekey, emask, pen, busy_wait, escale, open0, *,
+                         use_energy=False):
+    """The plain PyTorch version of ``scheduler_tick``."""
+    ranked, urg, doom = tick_score_plain(
+        pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem, ttft_rem,
+        tpot_qos, dtok, has_ttft, has_tpot, phase, ekey, emask, pen,
+        busy_wait, escale, use_energy)
+    order = tick_order(urg, doom, slots)
+    return greedy_place_plain(ranked, order, slots, open0), order
+
+
+def scheduler_tick(pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem,
+                   ttft_rem, tpot_qos, dtok, has_ttft, has_tpot, phase, ekey,
+                   emask, pen, busy_wait, escale, open0, *,
+                   use_energy=False):
+    """One whole scheduling decision on the device, the reference's
+    argument list: pools [cap, Wp] f32 (``pool_ene`` read only with
+    ``use_energy``); slots [Jp] i32 (-1 = padding); t_rem, ttft_rem,
+    tpot_qos, dtok [Jp] f32; has_ttft, has_tpot, phase, ekey [Jp] i32;
+    emask [K, Wp] bool; pen, busy_wait, escale [Wp] f32; open0 [Wp] bool.
+    Returns (assign [Jp] i32 — worker index or -1, order [Jp] i32 — the
+    urgency-sorted placement order): two kernels with the sort between."""
+    ranked, urg, doom = tick_score(
+        pool_t, pool_pre, pool_dec, pool_ene, slots, t_rem, ttft_rem,
+        tpot_qos, dtok, has_ttft, has_tpot, phase, ekey, emask, pen,
+        busy_wait, escale, use_energy)
+    order = tick_order(urg, doom, slots)
+    return greedy_place(ranked, order, slots, open0), order

@@ -101,3 +101,57 @@ def test_entry_point_runs_on_the_cpu_when_asked(capsys):
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed["jobs"] == stats["jobs"] == 40
     assert printed["device"] == "cpu"
+
+
+def test_without_cuda_the_resident_backend_raises(monkeypatch):
+    from repro_torch.core.devicecache import DeviceScoreCache
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_torch_score_fn(device_cache=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceScoreCache()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        schedule.main(["--jobs", "5", "--resident", "--regions", "2"])
+
+
+@pytest.mark.parametrize("argv", [["--resident"], ["--regions", "2"],
+                                  ["--resident", "--regions", "2",
+                                   "--serving", "batched"]])
+def test_entry_point_runs_resident_and_regions_on_the_cpu(capsys, argv):
+    stats = schedule.main(["--device", "cpu", "--jobs", "40", "--pools",
+                           "1", "2", "2", *argv])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["jobs"] == stats["jobs"] == 40
+    assert printed["device"] == "cpu"
+
+
+def test_resident_and_v1_entry_points_give_the_same_summary():
+    base = ["--device", "cpu", "--jobs", "60", "--pools", "1", "2", "2",
+            "--regions", "2", "--serving", "batched", "--streaming", "2.0",
+            "2.5"]
+    v1 = schedule.main(base)
+    resident = schedule.main(base + ["--resident"])
+    for key in ("violations", "e2e_avg_s", "goodput_jps", "ttft_avg_s"):
+        assert v1[key] == resident[key]
+    with pytest.raises(SystemExit):
+        schedule.main(base + ["--resident", "--v2"])   # one backend only
+
+
+def test_subprocess_resident_run_loads_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.schedule import main\n"
+        "stats = main(['--device', 'cpu', '--jobs', '60', '--pools', '1', "
+        "'2', '2', '--resident', '--regions', '2'])\n"
+        "assert stats['jobs'] == 60, stats\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch.core.devicecache' in sys.modules\n"
+        "print('ISOLATED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ISOLATED"

@@ -7,6 +7,7 @@ those equal).  The tolerance is exact: every ``JobResult`` field but the
 host wall-clock ``decision_s``."""
 
 import pytest
+import torch
 
 from repro.core.job import make_experiment as jx_make_experiment
 from repro.core.pallas_scoring import make_pallas_score_fn
@@ -14,6 +15,7 @@ from repro.core.scheduler import SynergAI as JxSynergAI
 from repro.core.simulator import Simulator as JxSimulator
 from repro.core.workers import synth_fleet as jx_synth_fleet
 from repro.core.workload import scenario as jx_scenario
+from repro_torch.core.devicecache import DeviceScoreCache
 from repro_torch.core.job import make_experiment
 from repro_torch.core.offline import characterize
 from repro_torch.core.scheduler import SynergAI
@@ -74,7 +76,7 @@ def test_v1_slice_matches_pallas_path(configdict, torch_cd, case):
 
 
 @pytest.mark.parametrize("variant", ["numpy", "uncached", "torch",
-                                     "torch-v2"])
+                                     "torch-v2", "torch-resident"])
 def test_zero_job_tick_all_variants(torch_cd, variant):
     pol = {
         "numpy": lambda: SynergAI(),
@@ -83,6 +85,8 @@ def test_zero_job_tick_all_variants(torch_cd, variant):
             score_fn=make_torch_score_fn(device="cpu")),
         "torch-v2": lambda: SynergAI(
             score_fn=make_torch_score_fn(v2=True, device="cpu")),
+        "torch-resident": lambda: SynergAI(
+            score_fn=make_torch_score_fn(device_cache=True, device="cpu")),
     }[variant]()
     fleet = synth_fleet(1, 2, 2)
     cluster = Simulator(torch_cd, pol, fleet=fleet).cluster
@@ -100,12 +104,15 @@ def test_zero_job_score_fn_returns_the_shared_empty(torch_cd):
     assert got.best_worker.shape == (0,)
 
 
-def test_device_resident_backend_is_not_ported_yet():
-    def marker(*a, **k):
-        raise AssertionError("never called")
-    marker.device_cache = True
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        SynergAI(score_fn=marker)
+def test_device_marker_builds_the_ports_cache_on_its_device():
+    marker = make_torch_score_fn(device_cache=True, device="cpu")
+    assert marker.device_cache and marker.takes_profile
+    with pytest.raises(TypeError, match="marker"):
+        marker()
+    pol = SynergAI(score_fn=marker)
+    assert isinstance(pol.cache, DeviceScoreCache)
+    assert pol.cache.device == torch.device("cpu") and pol.cache.bj == 128
+    assert pol._device and not pol._fused
 
 
 def test_cpu_slice_launches_no_kernel(torch_cd):
