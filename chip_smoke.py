@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100 and hold its
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA H100 and hold its
 kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
 
-1. the card's name and power limit, the PyTorch version; build both CUDA
-   sources from ``src/repro_torch/kernels/csrc`` in parallel (one ``nvcc``
-   each) and time the build;
-2. each kernel against its plain PyTorch version on the card, exactly
-   (every output, NaN matched by position), with the kernel's, the plain
-   version's and the byte bound's milliseconds:
+1. the card's name and power limit, the PyTorch version; build every CUDA
+   source in ``src/repro_torch/kernels/csrc`` in parallel (one ``nvcc``
+   each), time the build and print ``ptxas``'s register lines;
+2. each kernel against its plain PyTorch version on the card, with the
+   kernel's, the plain version's and the bound's milliseconds:
    (a) the v1 and v2 scoring kernels at (J, W) = (2048, 256), (2043, 256),
-       (10000, 64) and (16384, 2048) on messy inputs;
+       (10000, 64) and (16384, 2048) on messy inputs, exactly (every
+       output, NaN matched by position);
    (b) the device-resident tick (``tick_score_kernel``, the sort,
        ``greedy_place_kernel``) at (J, cap, W) = (2043, 4096, 256),
        (10000, 16384, 64) and (16384, 32768, 2048), energy off and on: inf
        rows and columns, slot -1 padding, doomed rows, f32 ties, NaN, ±inf
-       and -0.0 urgencies, K > 1 admission masks;
-3. the main path at full size, on the 10,000-job MMPP scenario over the
-   64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
+       and -0.0 urgencies, K > 1 admission masks; exactly;
+   (c) ``flash_attention`` at the serving shape [B, S, H, K, hd] =
+       [4, 1024, 32, 8, 128] causal, a ragged danube-like shape (S = 1,000,
+       hd 80, window 256) and a gemma-like MQA shape (hd 256, K = 1), and
+   (d) ``decode_attention`` on the serving buffer [4, 1064, 32, 8, 128] at
+       k_valid 1, 1025 and 1064, a ragged hd-80 buffer and an hd-256 MQA
+       buffer; both in f32 (within 2e-5, TF32 off) and bf16 (within one
+       bf16 ulp, 2**-7 relative), each beside SDPA as the library yardstick;
+3. the scheduling path at full size, on the 10,000-job MMPP scenario over
+   the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
    tick (c) in job mode, (d) batched with streaming deadlines and
    ``energy_weight=0.5``, (e) under ``HierarchicalSynergAI`` over three
@@ -30,7 +37,18 @@ Phases, in order; any failure exits non-zero:
    numpy ``SynergAI()``; the resident runs also print their per-tick
    transfer counters, and one more job-mode resident run over the first
    3,000 jobs times the stages of a device tick;
-4. the kernels again at the main path's mean shape, one JSON line with each
+4. the serving path: qwen3-4b at full width in bf16 (random weights from a
+   seed) through ``build_model`` and ``InferenceEngine``, 4 requests of
+   batch 4 x prompt 1,024 x 32 generated tokens, each placed by
+   ``launch.serve.place`` (Eq. 1-4); the attention launches are counted
+   from 0 and must be 36 x 4 flash and 36 x 31 x 4 decode;
+5. parity of that path: the same prompts through the kernels and through
+   their plain versions (patched in here), in f32 (TF32 off) and bf16, held
+   step by step to the logit bounds, with every parting of the greedy
+   tokens explained by a near-tie;
+6. a decode-step profile: host and device ms, the device's idle share, the
+   decode-attention share and the top kernels;
+7. the kernels at their paths' mean shapes, one JSON line with each
    kernel's launches and times, then the card's line from ``nvidia-smi``,
    then the result.
 
@@ -47,20 +65,38 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = ((2048, 256), (2043, 256), (10000, 64), (16384, 2048))
 TICK_SHAPES = ((2043, 4096, 256), (10000, 16384, 64), (16384, 32768, 2048))
-SOURCES = ("scheduler_score", "scheduler_tick")
 N_JOBS = 10_000
 POOLS = (8, 28, 28)
 REPS = 25                 # timed samples per kernel (median reported)
 BATCH = 10                # launches per timed sample
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms")
+
+# the attention kernels (B, S, H, K, hd, window): the serving shape, a
+# ragged danube-like shape, a gemma-like MQA shape
+FLASH_HOLDS = ((4, 1024, 32, 8, 128, None), (4, 1000, 32, 8, 80, 256),
+               (2, 2048, 8, 1, 256, None))
+# (B, S, H, K, hd, k_valid): the serving buffer (prompt 1,024 + 32 + 8)
+# cold, just after the prompt and full; a ragged hd-80 buffer; hd-256 MQA
+DECODE_HOLDS = ((4, 1064, 32, 8, 128, 1), (4, 1064, 32, 8, 128, 1025),
+                (4, 1064, 32, 8, 128, 1064), (4, 1000, 32, 8, 80, 777),
+                (2, 2056, 8, 1, 256, 2050))
+# (rtol, atol) of a kernel against its plain version: the same f32 math
+# summed in another order; in bf16 both round their f32 result once
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
+# dense peak by input dtype, FLOP/s (NVIDIA's H100 SXM data sheet): bf16
+# on the tensor cores; f32 outside them (TF32 would change the numbers)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+SERVE_ARCH, REQUESTS, SERVE_BATCH, PROMPT, GEN = "qwen3-4b", 4, 4, 1024, 32
+# parity: max |logit delta| / max |plain logit| per row and step
+LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -337,9 +373,10 @@ def time_ms(fn, reps=REPS, batch=BATCH) -> float:
 
 
 def device_ms(fn, kernel_name, reps=REPS):
-    """Mean device time of the CUDA kernel named ``kernel_name`` over
-    ``reps`` calls of ``fn``, from the profiler's trace (None if the trace
-    holds no device time for it)."""
+    """Device time of one call of ``fn`` in the CUDA kernels whose names
+    contain ``kernel_name`` (each kernel's mean over ``reps`` calls, summed
+    over the kernels), from the profiler's trace (None if the trace holds no
+    device time for them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -348,11 +385,11 @@ def device_ms(fn, kernel_name, reps=REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total", None)
-        if kernel_name in evt.key and total and evt.count:
-            return total / evt.count / 1e3
-    return None
+    ms = [evt.device_time_total / evt.count / 1e3
+          for evt in prof.key_averages()
+          if kernel_name in evt.key and evt.count
+          and getattr(evt, "device_time_total", 0)]
+    return sum(ms) if ms else None
 
 
 def to_card(arrays):
@@ -675,6 +712,295 @@ def tick_stages(cd, fleet, jobs):
 
 
 # ---------------------------------------------------------------------------
+# the attention kernels
+
+
+def attn_inputs(q_shape, kv_shape, dtype, seed):
+    """q, k, v on the card: standard normal from a numpy seed, cast."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to(device="cuda", dtype=dtype) for s in (q_shape, kv_shape,
+                                                     kv_shape)]
+
+
+def visible_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs that the masks leave visible, per head."""
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= k <= q
+    if window is not None:
+        ok &= q - k < window
+    return int(ok.sum())
+
+
+def attn_bound(ops, nbytes, dtype_name, rate):
+    """(bound_ms, bound_by): the larger of the operations over the dtype's
+    dense peak and the bytes over the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_FLOPS[dtype_name], nbytes / rate
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def hold_attention(label, kernel_name, wrapper, plain, library, inputs,
+                   dtype_name, ops, nbytes, rate):
+    """Run the kernel and its plain version on the same card inputs, fail
+    unless every output element is within ``ATTN_TOL``, and time the
+    kernel (per call and device), the plain version and ``library`` (one
+    PyTorch call of the same function, never used by the port)."""
+    import torch
+    out = wrapper(*inputs)
+    want = plain(*inputs)
+    lib = library(*inputs)
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[dtype_name]
+    err = (out.float() - want.float()).abs()
+    bad = int((err > atol + rtol * want.float().abs()).sum())
+    if bad or not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"FAIL {label}: {bad} elements outside rtol {rtol}, "
+                         f"atol {atol} (max abs err {float(err.max())})")
+    bound_ms, bound_by = attn_bound(ops, nbytes, dtype_name, rate)
+    r = {"max_abs_err": float(err.max()), "rtol": rtol, "atol": atol,
+         "ms": time_ms(lambda: wrapper(*inputs)),
+         "device_ms": device_ms(lambda: wrapper(*inputs), kernel_name),
+         "plain_ms": time_ms(lambda: plain(*inputs), reps=5, batch=2),
+         "library_ms": time_ms(lambda: library(*inputs)),
+         "library_max_abs_err": float((lib.float() - want.float()).abs()
+                                      .max()),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"hold {label}: within tolerance, " + json.dumps(r), flush=True)
+    return r
+
+
+def hold_flash(B, S, H, K, hd, window, dtype_name, rate):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    dtype = getattr(torch, dtype_name)
+    inputs = attn_inputs((B, S, H, hd), (B, S, K, hd), dtype, S + hd)
+    ok = None
+    if window is not None:
+        pos = torch.arange(S, device="cuda")
+        ok = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                               < window)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=ok, is_causal=ok is None,
+            enable_gqa=True).transpose(1, 2)
+
+    esize = inputs[0].element_size()
+    return hold_attention(
+        f"flash_attention (B, S, H, K, hd, window)="
+        f"{(B, S, H, K, hd, window)} {dtype_name}", "flash_attention_kernel",
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True,
+                                           window=window),
+        lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=True,
+                                                 window=window),
+        sdpa, inputs, dtype_name,
+        4 * B * H * visible_pairs(S, S, True, window) * hd,
+        esize * (2 * B * S * H * hd + 2 * B * S * K * hd), rate)
+
+
+def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    dtype = getattr(torch, dtype_name)
+    q, k, v = attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype, S + hd)
+    kv_end = min(k_valid, S)
+
+    def sdpa(q, k, v, k_valid):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :kv_end].transpose(1, 2),
+            v[:, :kv_end].transpose(1, 2), enable_gqa=True).transpose(1, 2)
+
+    esize = q.element_size()
+    return hold_attention(
+        f"decode_attention{label} (B, S, H, K, hd, k_valid)="
+        f"{(B, S, H, K, hd, k_valid)} {dtype_name}", "decode_attention_",
+        da.decode_attention, da.decode_attention_plain, sdpa,
+        (q, k, v, k_valid), dtype_name, 4 * B * H * kv_end * hd,
+        esize * (2 * B * kv_end * K * hd + 2 * B * H * hd), rate)
+
+
+# ---------------------------------------------------------------------------
+# the serving path
+
+
+def serve_run(model, params, prompts):
+    """Serve ``prompts`` through ``InferenceEngine``, each request placed by
+    the serving launcher's Eq. 1-4 plan.  The attention launch counts are
+    set to 0 just before and read just after."""
+    import torch
+    from repro_torch.core.offline import characterize
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import place
+    from repro_torch.serving.engine import InferenceEngine
+    cd = characterize()
+    eng = InferenceEngine(model, params, max_len=PROMPT + GEN + 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    for rid, toks in enumerate(prompts):
+        plan = place(cd, SERVE_ARCH, rid)
+        pre, dec = eng.stats.prefill_s, eng.stats.decode_s
+        out = eng.generate({"tokens": toks}, GEN)
+        pre, dec = eng.stats.prefill_s - pre, eng.stats.decode_s - dec
+        if out.shape != (SERVE_BATCH, GEN) or not bool(
+                ((out >= 0) & (out < model.cfg.vocab)).all()):
+            raise SystemExit(f"FAIL serve: tokens {tuple(out.shape)} out of "
+                             "range")
+        print("serve " + json.dumps({
+            "request": rid, "worker": plan, "batch": SERVE_BATCH,
+            "prompt": PROMPT, "generated": GEN, "prefill_s": pre,
+            "decode_s": dec, "tokens_per_s": SERVE_BATCH * GEN / (pre + dec),
+            "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / dec}),
+            flush=True)
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "decode_attention": da.decode_attention.launches}
+    L = model.cfg.n_layers
+    want = {"flash_attention": L * REQUESTS,
+            "decode_attention": L * (GEN - 1) * REQUESTS}
+    s = eng.stats
+    print("serving " + json.dumps({
+        "arch": SERVE_ARCH, "dtype": model.cfg.dtype, "layers": L,
+        "d_model": model.cfg.d_model, "requests": REQUESTS,
+        "launches": launches, "expected_launches": want,
+        "prefill_s": s.prefill_s / REQUESTS, "decode_s": s.decode_s / REQUESTS,
+        "tokens_per_s": s.decoded_tokens / (s.prefill_s + s.decode_s),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "cache_gb": eng.cache_footprint(SERVE_BATCH) / 1e9}), flush=True)
+    if launches != want:
+        raise SystemExit(f"FAIL serve: launches {launches}, expected {want}")
+    return launches
+
+
+def traced_generate(model, params, toks):
+    """Greedy generation through ``InferenceEngine`` that keeps each step's
+    logits (the prefill's, then each decode step's) as f32."""
+    import torch
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.sampling import greedy
+    steps = []
+
+    def record(logits, generator=None):
+        steps.append(logits.float())
+        return greedy(logits)
+
+    out = InferenceEngine(model, params, max_len=PROMPT + GEN + 8,
+                          sampler=record).generate({"tokens": toks}, GEN)
+    return torch.stack(steps), out
+
+
+def parity(model, params, toks, dtype_name):
+    """The same prompts through the kernels and through their plain
+    versions, held step by step: max |delta| / max |plain| of each row's
+    logits within ``LOGIT_BOUND``; a row is compared up to its first
+    parting of tokens, and a parting is explained only where the plain
+    run's top-2 gap is no larger than max |delta logit| at that step."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    counts = (fa.flash_attention.launches, da.decode_attention.launches)
+    logits_k, toks_k = traced_generate(model, params, toks)
+    if (fa.flash_attention.launches, da.decode_attention.launches) == counts:
+        raise SystemExit("FAIL parity: the kernel run launched no kernel")
+    counts = (fa.flash_attention.launches, da.decode_attention.launches)
+    with mock.patch("repro_torch.models.common.flash_attention",
+                    fa.flash_attention_plain), \
+            mock.patch("repro_torch.models.common.decode_attention",
+                       da.decode_attention_plain):
+        logits_p, toks_p = traced_generate(model, params, toks)
+    if (fa.flash_attention.launches, da.decode_attention.launches) != counts:
+        raise SystemExit("FAIL parity: the plain run launched a kernel")
+    bound = LOGIT_BOUND[dtype_name]
+    equal, partings, worst, over = 0, [], 0.0, []
+    T, B = logits_p.shape[:2]
+    for b in range(B):
+        for t in range(T):
+            plain, delta = logits_p[t, b], (logits_k[t, b] - logits_p[t, b])
+            dmax = float(delta.abs().max())
+            rel = dmax / float(plain.abs().max())
+            worst = max(worst, rel)
+            if rel > bound:
+                over.append({"row": b, "step": t, "rel": rel})
+            if int(toks_k[b, t]) != int(toks_p[b, t]):
+                top2 = plain.topk(2).values
+                gap = float(top2[0] - top2[1])
+                partings.append({"row": b, "step": t, "gap": gap,
+                                 "max_abs_dlogit": dmax,
+                                 "explained": gap <= dmax})
+                break
+            equal += 1
+    line = {"dtype": dtype_name, "rows": B, "steps": T,
+            "equal_tokens": equal, "bound": bound, "worst_rel_delta": worst,
+            "partings": partings, "over_bound": over}
+    print("parity " + json.dumps(line), flush=True)
+    if over or any(not p["explained"] for p in partings):
+        raise SystemExit(f"FAIL parity {dtype_name}: {len(over)} steps over "
+                         "the bound or an unexplained parting")
+    return line
+
+
+def decode_profile(model, params, toks, steps=4):
+    """Host and device time of ``steps`` decode steps after the prompt:
+    host ms per step (the device synchronised at the end), device ms per
+    step (all CUDA kernels in the profiler's trace), idle share, the
+    decode-attention share and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.kvcache import pad_cache
+    from repro_torch.serving.sampling import greedy
+    logits, caches = model.prefill(params, {"tokens": toks})
+    caches = pad_cache(caches, model.init_cache(toks.shape[0],
+                                                PROMPT + GEN + 8))
+    state = {"tok": greedy(logits), "pos": toks.shape[1], "caches": caches}
+
+    def step():
+        logits, state["caches"] = model.decode(
+            params, state["caches"], {"token": state["tok"][:, None],
+                                      "pos": state["pos"]})
+        state["tok"] = greedy(logits)
+        state["pos"] += 1
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / steps)
+    device = sum(by_name.values())
+    attn = sum(v for k, v in by_name.items() if "decode_attention_" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    line = {"steps": steps, "host_ms_per_step": host_ms,
+            "device_ms_per_step": device if by_name else None,
+            "idle_share": 1.0 - device / host_ms if by_name else None,
+            "decode_attention_share": attn / device if device else None,
+            "kernels_per_step": sum(
+                1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA) / steps,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    print("decode_profile " + json.dumps(line), flush=True)
+    return line
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -712,16 +1038,17 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; HBM rate {rate / 1e12} TB/s", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(_build.compile_source, SOURCES))
-    for source in SOURCES:
-        _build.load(source)
-    print(f"build: {', '.join(f'{s}.cu' for s in SOURCES)} in "
+    _build.build_all()
+    print(f"build: {', '.join(f'{s}.cu' for s in _build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for source in SOURCES:
+    for source in _build.SOURCES:
         for line in _build.build_log.get(source, "").splitlines():
-            if "registers" in line or "Compiling" in line:
+            if "registers" in line or "Compiling" in line or "spill" in line:
                 print("  ptxas " + line.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False", flush=True)
 
     # 2a. the scoring kernels against their plain versions
     kernels = {
@@ -766,7 +1093,20 @@ def main() -> int:
             torch.cuda.empty_cache()
         print(f"hold scheduler_tick J={J} cap={cap} W={W}: exact", flush=True)
 
-    # 3. the main path at full size
+    # 2c-2d. the attention kernels against their plain versions
+    attn_worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for dtype_name in ("bfloat16", "float32"):
+        for shape in FLASH_HOLDS:
+            r = hold_flash(*shape, dtype_name, rate)
+            attn_worst["flash_attention"] = max(attn_worst["flash_attention"],
+                                                r["max_abs_err"])
+        for shape in DECODE_HOLDS:
+            r = hold_decode(*shape, dtype_name, rate)
+            attn_worst["decode_attention"] = max(
+                attn_worst["decode_attention"], r["max_abs_err"])
+        torch.cuda.empty_cache()
+
+    # 3. the scheduling path at full size
     cd = characterize()
     fleet = synth_fleet(*POOLS)
     main_path = {
@@ -796,7 +1136,35 @@ def main() -> int:
     tick_stages(cd, fleet, scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet,
                                     seed=0)[:3000])
 
-    # 4. the kernels at the main path's mean shape, and the result
+    # 4-6. the serving path at full width, its parity, a decode-step profile
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=model.device)
+                               .manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"params: {SERVE_ARCH} {cfg.dtype}, {cfg.n_layers} layers x "
+          f"d_model {cfg.d_model}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B parameters "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator(device=model.device).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
+                             generator=rng, device=model.device)
+               for _ in range(REQUESTS)]
+    serve_launches = serve_run(model, params, prompts)
+    parity(model, params, prompts[0], "bfloat16")
+    profile_line = decode_profile(model, params, prompts[0])
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    parity(model32, params, prompts[0], "float32")
+    del params
+    torch.cuda.empty_cache()
+
+    # 7. the kernels at their paths' mean shapes, and the result
     W = len(fleet)
     rows = []
     for kname, k in kernels.items():
@@ -841,6 +1209,35 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "device_ms": r["device_ms"],
             "shape": [J, cap, W]})
+    # the attention kernels at the serving path's shapes in bf16: flash at
+    # the prompt, decode at the mean k_valid of the 31 decode steps
+    flash = hold_flash(SERVE_BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, None, "bfloat16", rate)
+    mean_valid = PROMPT + 1 + (GEN - 2) // 2
+    decode = hold_decode(SERVE_BATCH, PROMPT + GEN + 8, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.head_dim, mean_valid,
+                         "bfloat16", rate,
+                         label=" at the serving path's mean shape")
+    for kname, r, line, shape in (
+            ("flash_attention", flash, 26,
+             [SERVE_BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim]),
+            ("decode_attention", decode, 24,
+             [SERVE_BATCH, PROMPT + GEN + 8, cfg.n_heads, cfg.n_kv_heads,
+              cfg.head_dim, mean_valid])):
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+            "replaces": f"src/repro/kernels/{kname}.py:{line}",
+            "launches": serve_launches[kname],
+            "max_abs_err": max(attn_worst[kname], r["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "shape": shape, "dtype": "bfloat16"})
+    print("decode step: " + json.dumps(
+        {k: profile_line[k] for k in ("host_ms_per_step", "device_ms_per_step",
+                                      "idle_share",
+                                      "decode_attention_share")}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -24,8 +25,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
 _lock = threading.Lock()
 _loaded: dict = {}
+_functions: dict = {}
 build_log: dict = {}      # source name -> nvcc's output (register counts)
 
 
@@ -78,3 +82,29 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(str(compile_source(name)))
         return lib
+
+
+def build_all() -> None:
+    """Compile every source in ``csrc/`` at once (one ``nvcc`` each, all
+    started together) and load the libraries."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(compile_source, SOURCES))
+    for name in SOURCES:
+        load(name)
+
+
+def launch(name: str, fn_name: str, argtypes, err_fn_name: str, *args):
+    """Call the C function ``fn_name`` of ``csrc/<name>.cu`` (its argument
+    types set on first use), which launches on the stream it is given and
+    returns a CUDA error code; raise if CUDA refused the launch."""
+    bound = _functions.get((name, fn_name))
+    if bound is None:
+        lib = load(name)
+        fn, err = getattr(lib, fn_name), getattr(lib, err_fn_name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        bound = _functions[(name, fn_name)] = (fn, err)
+    fn, err = bound
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: {err(rc).decode()}")

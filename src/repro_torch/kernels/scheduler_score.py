@@ -68,18 +68,8 @@ _SIGNATURES = {
 def _launch(lib_name, fn_name, *args):
     """Launch ``fn_name`` from the built library ``lib_name`` on the
     current stream; raise if CUDA refused the launch."""
-    lib = _build.load(lib_name)
     functions, err_name = _SIGNATURES[lib_name]
-    err = getattr(lib, err_name)
-    if err.restype is not ctypes.c_char_p:
-        for name, argtypes in functions.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = _I
-        err.argtypes = [_I]
-        err.restype = ctypes.c_char_p
-    rc = getattr(lib, fn_name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: {err(rc).decode()}")
+    _build.launch(lib_name, fn_name, functions[fn_name], err_name, *args)
 
 
 # ---------------------------------------------------------------------------

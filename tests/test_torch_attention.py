@@ -1,0 +1,138 @@
+"""The port's attention kernels' plain versions against the JAX package.
+
+The same numpy inputs (from a seed) go through the Pallas kernels in
+interpret mode, the ``kernels/ref.py`` oracles and the port's wrappers on
+CPU tensors (which run the plain versions and launch nothing).  Tolerances
+are those of ``tests/test_kernels.py``: rtol = atol = 2e-5 in f32 and 2e-3
+in bf16 (both sides accumulate in f32; bf16 rounds the output once).  Ragged
+shapes, which the Pallas wrappers reject, are held against the oracles."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.convert import to_torch
+
+TOL32 = dict(rtol=2e-5, atol=2e-5)
+TOL16 = dict(rtol=2e-3, atol=2e-3)
+DTYPES = {"float32": (jnp.float32, TOL32), "bfloat16": (jnp.bfloat16, TOL16)}
+
+
+def inputs(seed, q_shape, kv_shape, dtype):
+    """q, k, v as (jax arrays, cpu tensors) with identical bits."""
+    rng = np.random.default_rng(seed)
+    jx = [jnp.asarray(rng.standard_normal(s, dtype=np.float32)).astype(dtype)
+          for s in (q_shape, kv_shape, kv_shape)]
+    return jx, [to_torch(np.asarray(a)) for a in jx]
+
+
+def close(out, want, tol):
+    got = out.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 128, 4, 4, 64),     # MHA
+    (2, 256, 8, 2, 64),     # GQA 4:1
+    (1, 256, 4, 1, 128),    # MQA, wide head
+    (2, 128, 2, 2, 32),     # small head_dim
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_plain_matches_pallas_and_ref(B, S, H, K, hd, dtype):
+    jdt, tol = DTYPES[dtype]
+    (q, k, v), (tq, tk, tv) = inputs(0, (B, S, H, hd), (B, S, K, hd), jdt)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(tq, tk, tv, causal=True)
+    assert fa.flash_attention.launches == before
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    close(out, pallas_flash(q, k, v, causal=True, bq=128, bk=128,
+                            interpret=True), tol)
+    close(out, ref.flash_attention_ref(q, k, v, causal=True), tol)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_flash_plain_sliding_window_matches_pallas(window):
+    B, S, H, K, hd = 1, 256, 4, 2, 64
+    (q, k, v), (tq, tk, tv) = inputs(1, (B, S, H, hd), (B, S, K, hd),
+                                     jnp.float32)
+    out = fa.flash_attention(tq, tk, tv, causal=True, window=window)
+    close(out, pallas_flash(q, k, v, causal=True, window=window, bq=64,
+                            bk=64, interpret=True), TOL32)
+    close(out, ref.flash_attention_ref(q, k, v, causal=True, window=window),
+          TOL32)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,k_valid", [
+    (2, 512, 8, 2, 64, 512),
+    (1, 1024, 4, 1, 128, 700),   # partially filled cache
+    (4, 512, 4, 4, 64, 33),      # barely-warm cache
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_plain_matches_pallas_and_ref(B, S, H, K, hd, k_valid,
+                                             dtype):
+    jdt, tol = DTYPES[dtype]
+    (q, k, v), (tq, tk, tv) = inputs(2, (B, 1, H, hd), (B, S, K, hd), jdt)
+    before = da.decode_attention.launches
+    out = da.decode_attention(tq, tk, tv, k_valid)
+    assert da.decode_attention.launches == before
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    close(out, pallas_decode(q, k, v, k_valid, bk=256, interpret=True), tol)
+    close(out, ref.decode_attention_ref(q, k, v, k_valid), tol)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
+    (2, 100, 8, 2, 80, True, None),     # danube head_dim, ragged length
+    (1, 77, 8, 1, 256, True, None),     # gemma MQA
+    (3, 130, 4, 2, 16, True, 17),       # window, ragged
+    (1, 45, 4, 4, 32, False, None),     # bidirectional
+    (1, 1, 4, 2, 64, True, None),       # one token
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_plain_ragged_matches_ref(B, S, H, K, hd, causal, window,
+                                       dtype):
+    jdt, tol = DTYPES[dtype]
+    (q, k, v), (tq, tk, tv) = inputs(3, (B, S, H, hd), (B, S, K, hd), jdt)
+    out = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    close(out, ref.flash_attention_ref(q, k, v, causal=causal, window=window),
+          tol)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,k_valid", [
+    (4, 1064, 32, 8, 128, 1025),   # the serving buffer, prompt + 1
+    (2, 1000, 8, 2, 80, 777),      # ragged buffer
+    (1, 300, 8, 1, 256, 1),        # one valid position
+    (2, 50, 4, 2, 16, 50),
+    (2, 50, 4, 2, 32, 80),         # k_valid past the buffer
+])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_plain_ragged_matches_ref(B, S, H, K, hd, k_valid, dtype):
+    jdt, tol = DTYPES[dtype]
+    (q, k, v), (tq, tk, tv) = inputs(4, (B, 1, H, hd), (B, S, K, hd), jdt)
+    out = da.decode_attention(tq, tk, tv, k_valid)
+    close(out, ref.decode_attention_ref(q, k, v, k_valid), tol)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 4, 4, 48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fa.flash_attention(q, torch.zeros(1, 4, 2, 48), torch.zeros(1, 4, 2, 48))
+    q = torch.zeros(1, 4, 4, 64)
+    kv = torch.zeros(1, 4, 3, 64)
+    with pytest.raises(ValueError, match="4 query heads over 3"):
+        fa.flash_attention(q, kv, kv)
+    with pytest.raises(TypeError, match="float16"):
+        h = q.half()
+        fa.flash_attention(h, h, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 64, 4, 4).transpose(1, 3)
+        fa.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="window 0"):
+        fa.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="2 query tokens"):
+        da.decode_attention(torch.zeros(1, 2, 4, 64), q, q, 3)

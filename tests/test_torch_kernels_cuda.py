@@ -102,3 +102,106 @@ def test_resident_cache_runs_on_the_card(card):
         runs.append([(r.job.id, r.worker, r.start, r.end) for r in res])
         assert pol.cache._dt.device.type == (device or "cuda")
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# attention kernels: f32 within 2e-5 (the same f32 math summed in another
+# order); bf16 within one bf16 ulp (2**-7 relative: kernel and plain version
+# round their f32 results to bf16 independently)
+
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+
+def _attn_inputs(q_shape, kv_shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype).cuda()
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+@pytest.fixture
+def no_tf32(card):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
+    (2, 128, 4, 4, 16, True, None), (2, 200, 8, 2, 32, True, None),
+    (1, 333, 4, 1, 64, True, 100), (2, 257, 8, 2, 80, True, 64),
+    (2, 300, 32, 8, 128, True, None), (1, 190, 8, 1, 256, True, None),
+    (1, 70, 4, 2, 64, False, None), (1, 1, 4, 2, 128, True, None),
+    (1, 65, 64, 1, 16, True, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(no_tf32, B, S, H, K, hd, causal,
+                                            window, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs((B, S, H, hd), (B, S, K, hd), dtype, S + hd)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,k_valid", [
+    (2, 64, 4, 4, 16, 64), (2, 1000, 8, 2, 32, 999), (1, 333, 4, 1, 64, 1),
+    (4, 1000, 32, 8, 80, 777), (4, 1064, 32, 8, 128, 1025),
+    (1, 500, 8, 1, 256, 500), (2, 100, 4, 2, 128, 130),
+    (1, 40, 4, 2, 64, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(no_tf32, B, S, H, K, hd,
+                                             k_valid, dtype):
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype, S + hd)
+    before = da.decode_attention.launches
+    out = da.decode_attention(q, k, v, k_valid)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_plain(q, k, v, k_valid)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_attention_wrappers_refuse_mixed_devices(card):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs((1, 8, 4, 64), (1, 8, 2, 64), torch.float32, 0)
+    with pytest.raises(ValueError, match="share dtype and device"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="share dtype and device"):
+        da.decode_attention(q[:, :1], k, v.cpu(), 4)
+
+
+def test_dense_model_on_the_card_matches_the_cpu(no_tf32):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = reduced(get_config("h2o-danube-1.8b"), head_dim=80, d_model=320)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg)
+    gparams = _to(params, gpu.device)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    out = InferenceEngine(gpu, gparams, max_len=60).generate(
+        {"tokens": toks.cuda()}, 6)
+    assert (fa.flash_attention.launches, da.decode_attention.launches) == (
+        before[0] + 2, before[1] + 2 * 5)
+    want = InferenceEngine(cpu, params, max_len=60).generate(
+        {"tokens": toks}, 6)
+    assert torch.equal(out.cpu(), want)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
