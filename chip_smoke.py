@@ -26,6 +26,14 @@ Phases, in order; any failure exits non-zero:
        k_valid 1, 1025 and 1064, a ragged hd-80 buffer and an hd-256 MQA
        buffer; both in f32 (within 2e-5, TF32 off) and bf16 (within one
        bf16 ulp, 2**-7 relative), each beside SDPA as the library yardstick;
+   (e) ``rwkv_scan`` at [B, S, H, hd] = [4, 1024, 32, 64] from a zero state
+       (the RWKV serving prefill), [4, 1, 32, 64] from a random state (a
+       decode step), [2, 1000, 8, 64] from a random state (a ragged length)
+       and an hd-16 shape, in f32 inputs (y and the end state within
+       1e-5 * max |plain|; bit equality is reported, and expected) and bf16
+       inputs (y within one bf16 ulp more), the update in place
+       (``state_out=state``) equal to the one out of place;
+       no PyTorch call computes the recurrence, so no library yardstick;
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -48,6 +56,12 @@ Phases, in order; any failure exits non-zero:
    tokens explained by a near-tie;
 6. a decode-step profile: host and device ms, the device's idle share, the
    decode-attention share and the top kernels;
+4b-6b. the same for the RWKV family: rwkv6-1.6b at full width in bf16, 4
+   requests of batch 4 x prompt 1,024 x 32 generated tokens; the WKV
+   launches are counted from 0 and must be 24 x 4 in prefill and
+   24 x 31 x 4 in decode, with no attention launch; its parity against
+   ``rwkv_scan_plain`` in f32 and bf16, and its decode-step profile with
+   the WKV share;
 7. the kernels at their paths' mean shapes, one JSON line with each
    kernel's launches and times, then the card's line from ``nvidia-smi``,
    then the result.
@@ -95,6 +109,15 @@ ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
 # on the tensor cores; f32 outside them (TF32 would change the numbers)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SERVE_ARCH, REQUESTS, SERVE_BATCH, PROMPT, GEN = "qwen3-4b", 4, 4, 1024, 32
+RWKV_ARCH = "rwkv6-1.6b"
+# the WKV scan (B, S, H, hd, start state): the RWKV serving prefill (zeros),
+# one decode step, a ragged length, the tests' reduced head dim
+RWKV_HOLDS = ((4, 1024, 32, 64, False), (4, 1, 32, 64, True),
+              (2, 1000, 8, 64, True), (2, 333, 8, 16, True))
+# the scan against its plain version: max |delta| <= RWKV_REL * max |plain|
+# for y and the end state, bf16 y one bf16 ulp (2**-7 relative) more; the
+# two do the same roundings in the same order, so "exact" is expected too
+RWKV_REL = 1e-5
 # parity: max |logit delta| / max |plain logit| per row and step
 LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 
@@ -372,24 +395,28 @@ def time_ms(fn, reps=REPS, batch=BATCH) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, kernel_name, reps=REPS):
+def device_ms(fn, kernel_name, reps=REPS, tries=3):
     """Device time of one call of ``fn`` in the CUDA kernels whose names
     contain ``kernel_name`` (each kernel's mean over ``reps`` calls, summed
-    over the kernels), from the profiler's trace (None if the trace holds no
-    device time for them)."""
+    over the kernels), from the profiler's trace.  A trace now and then
+    holds no device time for them; it is taken again, up to ``tries``
+    times, and None is returned if none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms = [evt.device_time_total / evt.count / 1e3
-          for evt in prof.key_averages()
-          if kernel_name in evt.key and evt.count
-          and getattr(evt, "device_time_total", 0)]
-    return sum(ms) if ms else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = [evt.device_time_total / evt.count / 1e3
+              for evt in prof.key_averages()
+              if kernel_name in evt.key and evt.count
+              and getattr(evt, "device_time_total", 0)]
+        if ms:
+            return sum(ms)
+    return None
 
 
 def to_card(arrays):
@@ -827,56 +854,157 @@ def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
         esize * (2 * B * kv_end * K * hd + 2 * B * H * hd), rate)
 
 
+def rwkv_inputs(B, S, H, hd, dtype, seed, with_state):
+    """r, k, v, w [B, S, H, hd] in ``dtype`` and u [H, hd] f32 on the card,
+    standard normal from a numpy seed (w = exp(-exp(.)) in (0, 1), as the
+    layer makes it), and a standard-normal f32 start state or None."""
+    import torch
+    rng = np.random.default_rng(seed)
+    shape = (B, S, H, hd)
+    rkv = [rng.standard_normal(shape, dtype=np.float32) for _ in range(3)]
+    w = np.exp(-np.exp(rng.standard_normal(shape, dtype=np.float32)))
+    card = [torch.from_numpy(a).to(device="cuda", dtype=dtype)
+            for a in rkv + [w]]
+    card.append(torch.from_numpy(rng.standard_normal(
+        (H, hd), dtype=np.float32)).cuda())
+    state = (torch.from_numpy(rng.standard_normal(
+        (B, H, hd, hd), dtype=np.float32)).cuda() if with_state else None)
+    return card, state
+
+
+def rwkv_held(y, s, y_plain, s_plain):
+    """(max abs err over y and the end state, whether both are within the
+    tolerance of ``RWKV_REL``)."""
+    import torch
+    yp = y_plain.float()
+    dy = (y.float() - yp).abs()
+    lim = RWKV_REL * float(yp.abs().max()) if yp.numel() else 0.0
+    if y.dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -7 * yp.abs()
+    ds = (s - s_plain).abs()
+    ok = (bool(torch.isfinite(y).all()) and bool((dy <= lim).all())
+          and float(ds.max()) <= RWKV_REL * float(s_plain.abs().max()))
+    return max(float(dy.max()) if dy.numel() else 0.0, float(ds.max())), ok
+
+
+def rwkv_bound(B, S, H, hd, esize, with_state, dtype_name, rate):
+    """(bound_ms, bound_by) of one scan: r, k, v, w read and y written once,
+    u and the start state (if given) read, the end state written; about
+    6 * hd**2 operations per step and (batch, head)."""
+    nbytes = (5 * B * S * H * hd * esize + 4 * H * hd
+              + 4 * B * H * hd * hd * (2 if with_state else 1))
+    return attn_bound(6 * hd * hd * B * S * H, nbytes, dtype_name, rate)
+
+
+def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
+    """``rwkv_scan`` against ``rwkv_scan_plain`` on the same card inputs,
+    its update in place against the one out of place, and the times."""
+    import torch
+    from repro_torch.kernels import rwkv_scan as rs
+    dtype = getattr(torch, dtype_name)
+    ins, state = rwkv_inputs(B, S, H, hd, dtype, S + hd, with_state)
+    label = (f"rwkv_scan (B, S, H, hd)={(B, S, H, hd)} "
+             f"{'from a random' if with_state else 'from a zero'} state "
+             f"{dtype_name}")
+    y, s = rs.rwkv_scan(*ins, state)
+    y_plain, s_plain = rs.rwkv_scan_plain(*ins, state)
+    inplace = (state.clone() if with_state else
+               torch.zeros((B, H, hd, hd), device="cuda"))
+    y2, s2 = rs.rwkv_scan(*ins, inplace, state_out=inplace)
+    torch.cuda.synchronize()
+    if s2 is not inplace or not torch.equal(inplace, s) or not torch.equal(
+            y2, y):
+        raise SystemExit(f"FAIL {label}: the update in place differs from "
+                         "the one out of place")
+    err, ok = rwkv_held(y, s, y_plain, s_plain)
+    if not ok:
+        raise SystemExit(f"FAIL {label}: outside the tolerance (max abs err "
+                         f"{err})")
+    bound_ms, bound_by = rwkv_bound(B, S, H, hd, y.element_size(),
+                                    with_state, dtype_name, rate)
+    r = {"max_abs_err": err, "exact": torch.equal(y, y_plain)
+         and torch.equal(s, s_plain),
+         "max_abs_y_plain": float(y_plain.float().abs().max()),
+         "rel": RWKV_REL,
+         "ms": time_ms(lambda: rs.rwkv_scan(*ins, state)),
+         "device_ms": device_ms(lambda: rs.rwkv_scan(*ins, state),
+                                "rwkv_scan_kernel"),
+         "plain_ms": time_ms(lambda: rs.rwkv_scan_plain(*ins, state), reps=3,
+                             batch=1),
+         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"hold {label}: within tolerance, in place = out of place, "
+          + json.dumps(r), flush=True)
+    return r
+
+
 # ---------------------------------------------------------------------------
 # the serving path
 
 
-def serve_run(model, params, prompts):
+def launch_counts(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def serve_run(model, params, prompts, wrappers, want_prefill, want_decode):
     """Serve ``prompts`` through ``InferenceEngine``, each request placed by
-    the serving launcher's Eq. 1-4 plan.  The attention launch counts are
-    set to 0 just before and read just after."""
+    the serving launcher's Eq. 1-4 plan.  The launch counts of ``wrappers``
+    are set to 0 just before and read just after, and held to
+    ``want_prefill`` (counted inside ``Model.prefill``) and ``want_decode``
+    (the rest)."""
     import torch
     from repro_torch.core.offline import characterize
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import place
     from repro_torch.serving.engine import InferenceEngine
+    arch = model.cfg.name
     cd = characterize()
-    eng = InferenceEngine(model, params, max_len=PROMPT + GEN + 8)
+    in_prefill = {name: 0 for name in wrappers}
+
+    def prefill(p, batch):
+        before = launch_counts(wrappers)
+        out = model.prefill(p, batch)
+        for name, n in launch_counts(wrappers).items():
+            in_prefill[name] += n - before[name]
+        return out
+
+    eng = InferenceEngine(dataclasses.replace(model, prefill=prefill),
+                          params, max_len=PROMPT + GEN + 8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = da.decode_attention.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     for rid, toks in enumerate(prompts):
-        plan = place(cd, SERVE_ARCH, rid)
+        plan = place(cd, arch, rid)
         pre, dec = eng.stats.prefill_s, eng.stats.decode_s
         out = eng.generate({"tokens": toks}, GEN)
         pre, dec = eng.stats.prefill_s - pre, eng.stats.decode_s - dec
         if out.shape != (SERVE_BATCH, GEN) or not bool(
                 ((out >= 0) & (out < model.cfg.vocab)).all()):
-            raise SystemExit(f"FAIL serve: tokens {tuple(out.shape)} out of "
-                             "range")
+            raise SystemExit(f"FAIL serve {arch}: tokens {tuple(out.shape)} "
+                             "out of range")
         print("serve " + json.dumps({
-            "request": rid, "worker": plan, "batch": SERVE_BATCH,
-            "prompt": PROMPT, "generated": GEN, "prefill_s": pre,
-            "decode_s": dec, "tokens_per_s": SERVE_BATCH * GEN / (pre + dec),
+            "arch": arch, "request": rid, "worker": plan,
+            "batch": SERVE_BATCH, "prompt": PROMPT, "generated": GEN,
+            "prefill_s": pre, "decode_s": dec,
+            "tokens_per_s": SERVE_BATCH * GEN / (pre + dec),
             "decode_tokens_per_s": SERVE_BATCH * (GEN - 1) / dec}),
             flush=True)
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "decode_attention": da.decode_attention.launches}
-    L = model.cfg.n_layers
-    want = {"flash_attention": L * REQUESTS,
-            "decode_attention": L * (GEN - 1) * REQUESTS}
+    launches = launch_counts(wrappers)
+    got = {"prefill": in_prefill,
+           "decode": {k: launches[k] - in_prefill[k] for k in launches}}
+    want = {"prefill": want_prefill, "decode": want_decode}
     s = eng.stats
     print("serving " + json.dumps({
-        "arch": SERVE_ARCH, "dtype": model.cfg.dtype, "layers": L,
+        "arch": arch, "dtype": model.cfg.dtype, "layers": model.cfg.n_layers,
         "d_model": model.cfg.d_model, "requests": REQUESTS,
-        "launches": launches, "expected_launches": want,
+        "launches": launches, "launches_by_phase": got,
+        "expected_launches_by_phase": want,
         "prefill_s": s.prefill_s / REQUESTS, "decode_s": s.decode_s / REQUESTS,
         "tokens_per_s": s.decoded_tokens / (s.prefill_s + s.decode_s),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "cache_gb": eng.cache_footprint(SERVE_BATCH) / 1e9}), flush=True)
-    if launches != want:
-        raise SystemExit(f"FAIL serve: launches {launches}, expected {want}")
+    if got != want:
+        raise SystemExit(f"FAIL serve {arch}: launches {got}, expected "
+                         f"{want}")
     return launches
 
 
@@ -897,25 +1025,25 @@ def traced_generate(model, params, toks):
     return torch.stack(steps), out
 
 
-def parity(model, params, toks, dtype_name):
+def parity(model, params, toks, dtype_name, wrappers, plains):
     """The same prompts through the kernels and through their plain
-    versions, held step by step: max |delta| / max |plain| of each row's
-    logits within ``LOGIT_BOUND``; a row is compared up to its first
+    versions (``plains``: the names the model looks up, patched to the
+    plain versions), held step by step: max |delta| / max |plain| of each
+    row's logits within ``LOGIT_BOUND``; a row is compared up to its first
     parting of tokens, and a parting is explained only where the plain
-    run's top-2 gap is no larger than max |delta logit| at that step."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    counts = (fa.flash_attention.launches, da.decode_attention.launches)
+    run's top-2 gap is no larger than max |delta logit| at that step.
+    ``wrappers``: the kernels whose launch counts show which run is which."""
+    from contextlib import ExitStack
+    counts = launch_counts(wrappers)
     logits_k, toks_k = traced_generate(model, params, toks)
-    if (fa.flash_attention.launches, da.decode_attention.launches) == counts:
+    if launch_counts(wrappers) == counts:
         raise SystemExit("FAIL parity: the kernel run launched no kernel")
-    counts = (fa.flash_attention.launches, da.decode_attention.launches)
-    with mock.patch("repro_torch.models.common.flash_attention",
-                    fa.flash_attention_plain), \
-            mock.patch("repro_torch.models.common.decode_attention",
-                       da.decode_attention_plain):
+    counts = launch_counts(wrappers)
+    with ExitStack() as stack:
+        for target, plain in plains.items():
+            stack.enter_context(mock.patch(target, plain))
         logits_p, toks_p = traced_generate(model, params, toks)
-    if (fa.flash_attention.launches, da.decode_attention.launches) != counts:
+    if launch_counts(wrappers) != counts:
         raise SystemExit("FAIL parity: the plain run launched a kernel")
     bound = LOGIT_BOUND[dtype_name]
     equal, partings, worst, over = 0, [], 0.0, []
@@ -936,21 +1064,25 @@ def parity(model, params, toks, dtype_name):
                                  "explained": gap <= dmax})
                 break
             equal += 1
-    line = {"dtype": dtype_name, "rows": B, "steps": T,
-            "equal_tokens": equal, "bound": bound, "worst_rel_delta": worst,
-            "partings": partings, "over_bound": over}
+    line = {"arch": model.cfg.name, "dtype": dtype_name, "rows": B,
+            "steps": T, "equal_tokens": equal, "bound": bound,
+            "worst_rel_delta": worst, "partings": partings,
+            "over_bound": over}
     print("parity " + json.dumps(line), flush=True)
     if over or any(not p["explained"] for p in partings):
-        raise SystemExit(f"FAIL parity {dtype_name}: {len(over)} steps over "
-                         "the bound or an unexplained parting")
+        raise SystemExit(f"FAIL parity {model.cfg.name} {dtype_name}: "
+                         f"{len(over)} steps over the bound or an "
+                         "unexplained parting")
     return line
 
 
-def decode_profile(model, params, toks, steps=4):
+def decode_profile(model, params, toks, share=("decode_attention_share",
+                                               "decode_attention_"), steps=4):
     """Host and device time of ``steps`` decode steps after the prompt:
     host ms per step (the device synchronised at the end), device ms per
-    step (all CUDA kernels in the profiler's trace), idle share, the
-    decode-attention share and the top kernels."""
+    step (all CUDA kernels in the profiler's trace), idle share, the share
+    of the kernels whose names contain ``share[1]`` (reported as
+    ``share[0]``) and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -986,12 +1118,13 @@ def decode_profile(model, params, toks, steps=4):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / steps)
     device = sum(by_name.values())
-    attn = sum(v for k, v in by_name.items() if "decode_attention_" in k)
+    part = sum(v for k, v in by_name.items() if share[1] in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    line = {"steps": steps, "host_ms_per_step": host_ms,
+    line = {"arch": model.cfg.name, "steps": steps,
+            "host_ms_per_step": host_ms,
             "device_ms_per_step": device if by_name else None,
             "idle_share": 1.0 - device / host_ms if by_name else None,
-            "decode_attention_share": attn / device if device else None,
+            share[0]: part / device if device else None,
             "kernels_per_step": sum(
                 1 for e in prof.events()
                 if e.device_type == DeviceType.CUDA) / steps,
@@ -1106,6 +1239,12 @@ def main() -> int:
                 attn_worst["decode_attention"], r["max_abs_err"])
         torch.cuda.empty_cache()
 
+    # 2e. the WKV scan against its plain version
+    rwkv_holds = {shape + (dtype_name,): hold_rwkv(*shape, dtype_name, rate)
+                  for dtype_name in ("float32", "bfloat16")
+                  for shape in RWKV_HOLDS}
+    torch.cuda.empty_cache()
+
     # 3. the scheduling path at full size
     cd = characterize()
     fleet = synth_fleet(*POOLS)
@@ -1139,6 +1278,9 @@ def main() -> int:
     # 4-6. the serving path at full width, its parity, a decode-step profile
     from repro_torch._tree import tree_leaves, tree_map
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.models.registry import build_model
     cfg = get_config(SERVE_ARCH)
     model = build_model(cfg)
@@ -1154,14 +1296,59 @@ def main() -> int:
     prompts = [torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
                              generator=rng, device=model.device)
                for _ in range(REQUESTS)]
-    serve_launches = serve_run(model, params, prompts)
-    parity(model, params, prompts[0], "bfloat16")
+    attn = {"flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention}
+    L = cfg.n_layers
+    serve_launches = serve_run(
+        model, params, prompts, attn,
+        {"flash_attention": L * REQUESTS, "decode_attention": 0},
+        {"flash_attention": 0, "decode_attention": L * (GEN - 1) * REQUESTS})
+    attn_plains = {
+        "repro_torch.models.common.flash_attention": fa.flash_attention_plain,
+        "repro_torch.models.common.decode_attention":
+            da.decode_attention_plain}
+    parity(model, params, prompts[0], "bfloat16", attn, attn_plains)
     profile_line = decode_profile(model, params, prompts[0])
     params = tree_map(lambda t: t.float(), params)
     torch.cuda.empty_cache()
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
-    parity(model32, params, prompts[0], "float32")
+    parity(model32, params, prompts[0], "float32", attn, attn_plains)
     del params
+    torch.cuda.empty_cache()
+
+    # 4b-6b. the RWKV serving path at full width, its parity, a decode-step
+    # profile
+    rcfg = get_config(RWKV_ARCH)
+    rmodel = build_model(rcfg)
+    t0 = time.perf_counter()
+    params = rmodel.init_params(torch.Generator(device=rmodel.device)
+                                .manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"params: {RWKV_ARCH} {rcfg.dtype}, {rcfg.n_layers} layers x "
+          f"d_model {rcfg.d_model}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator(device=rmodel.device).manual_seed(1)
+    prompts = [torch.randint(0, rcfg.vocab, (SERVE_BATCH, PROMPT),
+                             generator=rng, device=rmodel.device)
+               for _ in range(REQUESTS)]
+    wkv = {"rwkv_scan": rs.rwkv_scan, **attn}
+    L = rcfg.n_layers
+    rwkv_launches = serve_run(
+        rmodel, params, prompts, wkv,
+        {"rwkv_scan": L * REQUESTS, "flash_attention": 0,
+         "decode_attention": 0},
+        {"rwkv_scan": L * (GEN - 1) * REQUESTS, "flash_attention": 0,
+         "decode_attention": 0})
+    wkv_plains = {"repro_torch.models.layers.rwkv_scan": rs.rwkv_scan_plain}
+    parity(rmodel, params, prompts[0], "bfloat16", wkv, wkv_plains)
+    rwkv_profile = decode_profile(rmodel, params, prompts[0],
+                                  share=("wkv_share", "rwkv_scan_kernel"))
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    parity(build_model(dataclasses.replace(rcfg, dtype="float32")), params,
+           prompts[0], "float32", wkv, wkv_plains)
+    del params, prompts
     torch.cuda.empty_cache()
 
     # 7. the kernels at their paths' mean shapes, and the result
@@ -1234,10 +1421,31 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "shape": shape, "dtype": "bfloat16"})
-    print("decode step: " + json.dumps(
-        {k: profile_line[k] for k in ("host_ms_per_step", "device_ms_per_step",
-                                      "idle_share",
-                                      "decode_attention_share")}))
+    # the WKV scan at the RWKV serving path's shapes (its inputs are f32 in
+    # the model whatever the params' dtype), from 2e: the prefill and, under
+    # "decode_step", one decode step on the cache's state
+    hd = rcfg.ssm.rwkv_head_dim
+    pre_shape = (SERVE_BATCH, PROMPT, rcfg.d_model // hd, hd, False)
+    dec_shape = (SERVE_BATCH, 1, rcfg.d_model // hd, hd, True)
+    pre = rwkv_holds[pre_shape + ("float32",)]
+    dec = rwkv_holds[dec_shape + ("float32",)]
+    rows.append({
+        "name": "rwkv_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+        "replaces": "src/repro/kernels/rwkv_scan.py:22",
+        "launches": rwkv_launches["rwkv_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in rwkv_holds.values()),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None, "device_ms": pre["device_ms"],
+        "shape": list(pre_shape[:4]), "dtype": "float32",
+        "decode_step": dict({k: dec[k] for k in TIMES + ("bound_by",)},
+                            shape=list(dec_shape[:4]))})
+    for line, key in ((profile_line, "decode_attention_share"),
+                      (rwkv_profile, "wkv_share")):
+        print(f"decode step {line['arch']}: " + json.dumps(
+            {k: line[k] for k in ("host_ms_per_step", "device_ms_per_step",
+                                  "idle_share", key)}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

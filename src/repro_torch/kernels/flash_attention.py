@@ -60,6 +60,20 @@ def check_attention_inputs(what, q, k, v):
     return B, Sq, H, hd, Sk, K
 
 
+def fits_kernels(q, k, v) -> bool:
+    """Whether the attention kernels take these shapes: q [B, Sq, H, hd], k
+    and v [B, Sk, K, hd] of one shape, H % K == 0, hd in ``HEAD_DIMS`` and at
+    least one key.  A plain predicate on shapes that raises nothing; the
+    model routes by it, and ``check_attention_inputs`` still raises when a
+    wrapper is called with shapes it refuses."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        return False
+    B, _, H, hd = q.shape
+    Kb, Sk, K, khd = k.shape
+    return (Kb == B and khd == hd and hd in HEAD_DIMS and Sk > 0 and K > 0
+            and H % K == 0)
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
     """The plain PyTorch version of ``flash_attention`` (one softmax over
     all keys instead of the online one; the same f32 math)."""

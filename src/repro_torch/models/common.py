@@ -7,13 +7,17 @@ XLA paths, written in PyTorch.  ``attention`` keeps the JAX signature and
 sends the two self-attention shapes of ``layers.attn_sublayer`` to the kernel
 wrappers (``kernels.flash_attention`` for prefill, ``kernels.decode_attention``
 for one decode token), which compute the same function: this is the swap the
-JAX package's note describes ("swapped in on real hardware").  On CPU tensors
-the wrappers run their plain versions; on the card they launch the kernels
-for every length.
+JAX package's note describes ("swapped in on real hardware").  It routes by
+shape (``fits_kernels``): shapes the kernels do not take, such as a v head
+dim that differs from q's, take the XLA paths.  On CPU tensors the wrappers
+run their plain versions; on the card they launch the kernels for every
+length.
 
 Where torch and JAX differ the port follows JAX: ``gelu`` is the tanh
 approximation, norms run in f32 and cast back, RoPE promotes to f32 and casts
-back.  ``chunked_time_scan`` waits for the RWKV slice.
+back.  ``chunked_time_scan`` is a JAX remat device for training and waits for
+the training slice; the RWKV layers call the ``rwkv_scan`` kernel in its
+place.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, fits_kernels
 
 # ----------------------------------------------------------------------------
 # initializers (the JAX distributions; a torch.Generator in place of a key)
@@ -179,15 +183,20 @@ def chunked_flash_attention(q, k, v, *, causal=True, window=None,
 
 def attention(cfg: ModelConfig, q, k, v, *, causal=True, window=None,
               q_offset=0, k_valid=None):
-    """Dispatch.  The two self-attention shapes of ``attn_sublayer`` run on
-    the kernel wrappers, which compute the same function as the XLA paths
-    below (the JAX package's Pallas kernels, "swapped in on real hardware"):
-    prefill (Sq == Sk from position 0, no ``k_valid``) on
-    ``flash_attention``, one decode token against a cache with ``k_valid`` on
-    ``decode_attention``.  Anything else takes the JAX package's rule:
-    chunked flash for long key sequences, naive for short ones."""
+    """Dispatch by shape.  The two self-attention shapes of
+    ``attn_sublayer`` run on the kernel wrappers, which compute the same
+    function as the XLA paths below (the JAX package's Pallas kernels,
+    "swapped in on real hardware"): prefill (Sq == Sk from position 0, no
+    ``k_valid``) on ``flash_attention``, one decode token against a cache
+    with ``k_valid`` on ``decode_attention`` -- each only where
+    ``fits_kernels`` says the kernels take q, k and v as they are.  Every
+    other call, a v head dim other than q's and k's (MLA) among them, takes
+    the JAX package's rule: chunked flash for long key sequences, naive for
+    short ones.  This is routing, not a fallback: there is no ``try``, a
+    shape the kernels take never leaves them, and the wrappers still raise
+    on shapes they refuse when they are called directly."""
     Sq, Sk = q.shape[1], k.shape[1]
-    if q_offset == 0:
+    if q_offset == 0 and fits_kernels(q, k, v):
         if Sq == Sk and k_valid is None:
             return flash_attention(q, k, v, causal=causal, window=window)
         if Sq == 1 and k_valid is not None and not causal and window is None:

@@ -1,4 +1,4 @@
-# Port of repro/models/decoder.py: the grouped decoder stack on torch (kind "dense").
+# Port of repro/models/decoder.py: the grouped decoder stack on torch (kinds "dense" and "rwkv").
 """Generic grouped decoder stack.
 
 Layers are described by a per-layer ``LayerSpec``; consecutive identical
@@ -6,8 +6,8 @@ specs form a ``Group`` whose params carry a leading ``n`` (layer) dimension,
 the same stacking as the JAX package, so its params map key for key.  Where
 JAX scans a group with ``lax.scan``, the port loops over its layers.
 
-This slice runs kind ``"dense"`` in prefill and decode.  The other kinds
-(moe, rwkv, hymba, cross, encdec_dec), MLA and ``mode="train"`` raise
+The port runs kinds ``"dense"`` and ``"rwkv"`` in prefill and decode.  The
+other kinds (moe, hymba, cross, encdec_dec), MLA and ``mode="train"`` raise
 ``NotImplementedError`` naming the slice they wait for.  The JAX stack's
 ``constrain_seq`` is a no-op off a device mesh and waits for the sharding
 slice.
@@ -29,7 +29,6 @@ from repro_torch.models.common import rms_norm
 
 _LATER = {
     "moe": "the MoE slice (moe_routing)",
-    "rwkv": "the RWKV slice (rwkv_scan)",
     "hymba": "the Mamba/hymba slice",
     "cross": "the cross-attention/VLM slice",
     "encdec_dec": "the encoder-decoder slice",
@@ -87,12 +86,16 @@ def _check_ported(spec: LayerSpec):
 
 
 # ----------------------------------------------------------------------------
-# per-group init / forward (kind "dense")
+# per-group init / forward (kinds "dense" and "rwkv")
 
 
 def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
     _check_ported(g.spec)
     D, lead = cfg.d_model, (g.n,)
+    if g.spec.kind == "rwkv":
+        return {"ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
+                **layers.init_rwkv_layer(generator, cfg, dtype, device, lead),
+                "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device)}
     return {
         "ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
         "attn": layers.init_attention(generator, cfg, dtype, device, lead),
@@ -104,12 +107,24 @@ def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
 def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, dtype,
                       device):
     _check_ported(g.spec)
+    if g.spec.kind == "rwkv":
+        return layers.init_rwkv_cache(cfg, batch, dtype, device, (g.n,))
     buf = min(buf_len, g.spec.window) if g.spec.window else buf_len
     return layers.init_attn_cache(cfg, batch, buf, dtype, device, (g.n,))
 
 
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
                    pos):
+    if spec.kind == "rwkv":
+        cache = cache or {}
+        h, tm_cache = layers.rwkv_time_mix(
+            p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode,
+            cache=cache)
+        x = x + h
+        h, cm_shift = layers.rwkv_channel_mix(
+            p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps), mode=mode,
+            cache=cache.get("cm_shift"))
+        return x + h, dict(tm_cache, cm_shift=cm_shift)
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
     h, a_cache = layers.attn_sublayer(p["attn"], cfg, xin, mode=mode,
                                       cache=cache, pos=pos,

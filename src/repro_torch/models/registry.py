@@ -10,8 +10,9 @@ keys and per-group stacking:
     decode(params, caches, batch)        -> (logits [B,V], caches)
     init_cache(batch, buf_len)           -> zeroed caches
 
-``decode`` writes the new token's keys and values into ``caches`` in place
-(the JAX engine donates the buffers instead).  ``init_params`` draws from
+``decode`` writes into ``caches`` in place: the new token's keys and
+values, or the RWKV state and token shifts (the JAX engine donates the
+buffers instead).  ``init_params`` draws from
 the JAX initialisers' distributions, not their values; to run the JAX
 package's params, convert them with ``models.convert.from_jax``.
 

@@ -7,7 +7,8 @@ paper's terminology: (architecture x serving configuration) on one worker.
 
 Where the JAX engine donates the cache buffers to each decode step, the
 port preallocates the decode-sized cache once per ``generate`` and every
-decode step writes its token into it in place.
+decode step writes its token (for RWKV, its recurrent state) into it in
+place.
 """
 
 from __future__ import annotations

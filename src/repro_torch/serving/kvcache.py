@@ -10,8 +10,9 @@ def pad_cache(caches, template):
     """Embed prefill-produced caches into decode-sized buffers.
 
     ``template`` comes from ``model.init_cache(B, buf_len)`` and is written
-    in place: leaves whose shapes already match (ring buffers) are copied
-    whole, sequence buffers at offset 0.  Returns ``template``.
+    in place: leaves whose shapes already match (ring buffers, and the RWKV
+    state and token shifts, which have no sequence axis) are copied whole,
+    sequence buffers at offset 0.  Returns ``template``.
     """
 
     def one(c, t):

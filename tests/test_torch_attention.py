@@ -1,4 +1,5 @@
-"""The port's attention kernels' plain versions against the JAX package.
+"""The port's attention kernels' plain versions, and the model's routing
+to them, against the JAX package.
 
 The same numpy inputs (from a seed) go through the Pallas kernels in
 interpret mode, the ``kernels/ref.py`` oracles and the port's wrappers on
@@ -12,11 +13,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import reduced
+from repro.configs.registry import get_config
 from repro.kernels import ref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import common as jcommon
+from repro_torch.configs.base import reduced as t_reduced
+from repro_torch.configs.registry import get_config as t_get_config
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import common
 from repro_torch.models.convert import to_torch
 
 TOL32 = dict(rtol=2e-5, atol=2e-5)
@@ -136,3 +143,63 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError, match="2 query tokens"):
         da.decode_attention(torch.zeros(1, 2, 4, 64), q, q, 3)
+
+
+# ---------------------------------------------------------------------------
+# the model's attention routes by shape: a v head dim other than q's and k's
+# (MLA: qk 192 / v 128 at full width, 24 / 16 in the reduced deepseek-v2)
+# never reaches the kernel wrappers and equals the JAX package's attention
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,k_valid", [
+    (8, 8, True, None),        # prefill, naive
+    (1, 16, False, 9),         # one decode token against a cache, naive
+    (96, 96, True, None),      # prefill past flash_threshold, chunked flash
+    (1, 96, False, 70),        # decode past flash_threshold, chunked flash
+])
+def test_attention_takes_mla_shapes_off_the_kernels(monkeypatch, Sq, Sk,
+                                                    causal, k_valid):
+    jcfg = reduced(get_config("deepseek-v2-236b"))
+    tcfg = t_reduced(t_get_config("deepseek-v2-236b"))
+    qk_hd = jcfg.mla.qk_nope_head_dim + jcfg.mla.qk_rope_head_dim
+    v_hd = jcfg.mla.v_head_dim
+    assert (qk_hd, v_hd) == (24, 16)
+    B, H = 1, 4
+    rng = np.random.default_rng(Sq + Sk)
+    q, k, v = (rng.standard_normal(s, dtype=np.float32) for s in (
+        (B, Sq, H, qk_hd), (B, Sk, H, qk_hd), (B, Sk, H, v_hd)))
+
+    def refuse(*a, **kw):
+        raise AssertionError("routed to a kernel wrapper")
+
+    monkeypatch.setattr(common, "flash_attention", refuse)
+    monkeypatch.setattr(common, "decode_attention", refuse)
+    kw = dict(causal=causal, k_valid=k_valid)
+    out = common.attention(tcfg, *map(torch.from_numpy, (q, k, v)), **kw)
+    want = jcommon.attention(jcfg, *map(jnp.asarray, (q, k, v)), **kw)
+    assert out.shape == (B, Sq, H, v_hd)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    # the wrappers still refuse these shapes when called directly
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    with pytest.raises(ValueError, match="do not fit together"):
+        (fa.flash_attention(tq, tk, tv) if k_valid is None
+         else da.decode_attention(tq, tk, tv, k_valid))
+
+
+def test_fits_kernels_is_the_wrappers_shape_rule():
+    ok = torch.zeros(2, 8, 4, 64), torch.zeros(2, 8, 2, 64)
+    assert fa.fits_kernels(ok[0], ok[1], ok[1])
+    for q, k, v in [
+            (ok[0], ok[1], torch.zeros(2, 8, 2, 32)),          # v head dim
+            (torch.zeros(2, 8, 4, 48), torch.zeros(2, 8, 2, 48),
+             torch.zeros(2, 8, 2, 48)),                        # head_dim 48
+            (ok[0], torch.zeros(2, 8, 3, 64),
+             torch.zeros(2, 8, 3, 64)),                        # 4 over 3
+            (ok[0], torch.zeros(1, 8, 2, 64),
+             torch.zeros(1, 8, 2, 64)),                        # batch
+            (ok[0], torch.zeros(2, 0, 2, 64),
+             torch.zeros(2, 0, 2, 64))]:                       # no keys
+        assert not fa.fits_kernels(q, k, v)
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k, v)

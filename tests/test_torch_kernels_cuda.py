@@ -205,3 +205,75 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the WKV scan: kernel and plain version do the same f32 roundings in the
+# same order (the sum over the key index as one fixed pairwise tree), so y
+# and the end state are equal bit for bit, which also meets the smoke's
+# tolerance (1e-5 of max |plain|, bf16 y one ulp more)
+
+
+@pytest.mark.parametrize("B,S,H,hd,with_state", [
+    (4, 1024, 32, 64, False), (4, 1, 32, 64, True), (2, 1000, 8, 64, True),
+    (2, 333, 8, 16, True), (1, 77, 4, 32, False), (3, 5, 2, 16, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_kernel_matches_plain_version(card, B, S, H, hd, with_state,
+                                           dtype):
+    from repro_torch.kernels import rwkv_scan as rs
+    ins, state = chip_smoke.rwkv_inputs(B, S, H, hd, dtype, S + hd,
+                                        with_state)
+    before = rs.rwkv_scan.launches
+    y, s = rs.rwkv_scan(*ins, state)
+    torch.cuda.synchronize()
+    assert rs.rwkv_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == (B, S, H, hd)
+    assert s.dtype == torch.float32 and s.shape == (B, H, hd, hd)
+    y_plain, s_plain = rs.rwkv_scan_plain(*ins, state)
+    err, ok = chip_smoke.rwkv_held(y, s, y_plain, s_plain)
+    assert ok, err
+    assert torch.equal(y, y_plain) and torch.equal(s, s_plain), err
+    # in place: the state buffer updated by the kernel itself
+    inplace = (state.clone() if with_state
+               else torch.zeros((B, H, hd, hd), device="cuda"))
+    y2, s2 = rs.rwkv_scan(*ins, inplace, state_out=inplace)
+    torch.cuda.synchronize()
+    assert s2 is inplace and torch.equal(inplace, s) and torch.equal(y2, y)
+
+
+def test_rwkv_kernel_takes_zero_steps_without_a_launch(card):
+    from repro_torch.kernels import rwkv_scan as rs
+    ins, state = chip_smoke.rwkv_inputs(2, 0, 4, 64, torch.float32, 0, True)
+    before = rs.rwkv_scan.launches
+    y, s = rs.rwkv_scan(*ins, state)
+    out = torch.empty_like(state)
+    _, s2 = rs.rwkv_scan(*ins, state, state_out=out)
+    assert rs.rwkv_scan.launches == before
+    assert y.shape == (2, 0, 4, 64) and torch.equal(s, state)
+    assert s2 is out and torch.equal(out, state)
+
+
+def test_rwkv_model_on_the_card_matches_the_cpu(no_tf32):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = reduced(get_config("rwkv6-1.6b"))
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    before = (rs.rwkv_scan.launches, fa.flash_attention.launches,
+              da.decode_attention.launches)
+    out = InferenceEngine(gpu, _to(params, gpu.device), max_len=60).generate(
+        {"tokens": toks.cuda()}, 6)
+    assert (rs.rwkv_scan.launches, fa.flash_attention.launches,
+            da.decode_attention.launches) == (
+        before[0] + cfg.n_layers * 6, before[1], before[2])
+    want = InferenceEngine(cpu, params, max_len=60).generate(
+        {"tokens": toks}, 6)
+    assert torch.equal(out.cpu(), want)

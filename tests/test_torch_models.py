@@ -25,6 +25,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.serving.kvcache import pad_cache
 
 DENSE = ["qwen3-4b", "qwen3-32b", "gemma-2b", "h2o-danube-1.8b"]
+PORTED = DENSE + ["rwkv6-1.6b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -60,7 +61,7 @@ def leaves(tree, path=()):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_from_jax_round_trip(arch, dtype):
     jm, jp, tm, tp = both(arch, dtype=dtype)
     jl, tl = dict(leaves(jp)), dict(leaves(tp))
@@ -140,7 +141,7 @@ def test_attention_dispatch_matches_jax(monkeypatch, Sq, Sk, causal, window,
 
 
 def greedy_run(model, params, prefill_batch, steps, buf_len, to_host,
-               pad, argmax, step_batch):
+               pad, argmax, step_batch, caches_out=None):
     logits, caches = model.prefill(params, prefill_batch)
     caches = pad(caches, model.init_cache(logits.shape[0], buf_len))
     S = prefill_batch["tokens"].shape[1]
@@ -149,10 +150,12 @@ def greedy_run(model, params, prefill_batch, steps, buf_len, to_host,
         tok = argmax(logits)
         logits, caches = model.decode(params, caches, step_batch(tok, S + i))
         outs.append(to_host(logits))
+    if caches_out is not None:
+        caches_out.append(caches)
     return outs
 
 
-def run_both(arch, B, S, steps, seed, buf_extra=8):
+def run_both(arch, B, S, steps, seed, buf_extra=8, caches_out=None):
     jm, jp, tm, tp = both(arch)
     toks = np.random.default_rng(seed).integers(0, jm.cfg.vocab, (B, S),
                                                 dtype=np.int32)
@@ -160,12 +163,13 @@ def run_both(arch, B, S, steps, seed, buf_extra=8):
         jm, jp, {"tokens": jnp.asarray(toks)}, steps, S + steps + buf_extra,
         lambda x: np.asarray(x), jax_pad_cache,
         lambda lg: jnp.argmax(lg, axis=-1).astype(jnp.int32),
-        lambda tok, pos: {"token": tok[:, None], "pos": jnp.int32(pos)})
+        lambda tok, pos: {"token": tok[:, None], "pos": jnp.int32(pos)},
+        caches_out)
     got = greedy_run(
         tm, tp, {"tokens": torch.from_numpy(toks)}, steps,
         S + steps + buf_extra, lambda x: x.numpy().copy(), pad_cache,
         lambda lg: torch.argmax(lg, dim=-1).to(torch.int32),
-        lambda tok, pos: {"token": tok[:, None], "pos": pos})
+        lambda tok, pos: {"token": tok[:, None], "pos": pos}, caches_out)
     return want, got
 
 
@@ -203,8 +207,48 @@ def test_decode_writes_the_preallocated_cache_in_place():
     assert k[:, :, 6].abs().sum() > 0 and not k[:, :, 7:].any()
 
 
+@pytest.mark.parametrize("S,steps", [(12, 4), (33, 6)])
+def test_rwkv_prefill_decode_and_cache_match_jax(S, steps):
+    """The reduced rwkv6 (hd 16) from the JAX params: prefill and decode
+    logits within ``TOL``, greedy tokens equal, and every cache leaf (the
+    f32 WKV state and the two token shifts) after the decode steps."""
+    caches = []
+    want, got = run_both("rwkv6-1.6b", B=2, S=S, steps=steps, seed=S,
+                         caches_out=caches)
+    assert len(got) == steps + 1
+    for step, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_allclose(g, w, err_msg=f"step {step}", **TOL)
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+    jcache, tcache = caches
+    jl, tl = dict(leaves(jcache)), dict(leaves(tcache))
+    assert jl.keys() == tl.keys() and len(tl) == 3
+    for path, a in jl.items():
+        assert tuple(tl[path].shape) == a.shape, path
+        np.testing.assert_allclose(tl[path].numpy(), np.asarray(a),
+                                   err_msg=str(path), **TOL)
+
+
+def test_rwkv_decode_writes_its_cache_in_place():
+    tcfg = t_reduced(t_get_config("rwkv6-1.6b"))
+    model = build_model(tcfg, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    g = params["groups"][0]
+    assert float(g["tm"]["w0"].min()) == float(g["tm"]["w0"].max()) == -1.0
+    assert not any(g["tm"][f"lora_{n}_b"].any() for n in "rkvwg")
+    assert g["tm"]["u"].shape == (tcfg.n_layers, tcfg.d_model)
+    toks = torch.randint(0, tcfg.vocab, (2, 6),
+                         generator=torch.Generator().manual_seed(1))
+    _, caches = model.prefill(params, {"tokens": toks})
+    cache = pad_cache(caches, model.init_cache(2, 12))
+    before = {k: (t.data_ptr(), t.clone()) for k, t in cache[0].items()}
+    _, out = model.decode(params, cache, {"token": toks[:, :1], "pos": 6})
+    for key, (ptr, old) in before.items():
+        assert out[0][key].data_ptr() == ptr, key
+        assert not torch.equal(out[0][key], old), key
+
+
 @pytest.mark.parametrize("arch,slice_", [
-    ("rwkv6-1.6b", "RWKV slice"), ("phi3.5-moe-42b-a6.6b", "MoE slice"),
+    ("phi3.5-moe-42b-a6.6b", "MoE slice"),
     ("hymba-1.5b", "hymba slice"), ("llama-3.2-vision-11b", "VLM slice"),
     ("deepseek-v2-236b", "MoE slice")])
 def test_families_of_later_slices_raise(arch, slice_):

@@ -41,7 +41,8 @@ def engines(arch, max_len=48):
             InferenceEngine(tm, tp, max_len=max_len))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma-2b", "h2o-danube-1.8b",
+                                  "rwkv6-1.6b"])
 def test_generate_equals_the_jax_engine(arch):
     jeng, teng = engines(arch)
     toks = np.random.default_rng(1).integers(0, 256, (2, 16), dtype=np.int32)
@@ -58,7 +59,8 @@ def test_generate_equals_the_jax_engine(arch):
 
 @pytest.mark.parametrize("arch,B,L", [("qwen3-4b", 2, 48),
                                       ("h2o-danube-1.8b", 3, 100),
-                                      ("gemma-2b", 1, 7)])
+                                      ("gemma-2b", 1, 7),
+                                      ("rwkv6-1.6b", 2, 48)])
 def test_cache_bytes_and_footprint_equal_the_jax_package(arch, B, L):
     jeng, teng = engines(arch, max_len=L)
     want = jax_cache_bytes(jeng.model.init_cache(B, L))
@@ -105,6 +107,22 @@ def test_serve_entry_point_runs_on_the_cpu(capsys):
     assert "generated 4 tokens x batch 2" in lines[1]
     assert lines[2].startswith("stats: prefill 64 tok")
     assert stats.decoded_tokens == 16
+
+
+def test_serve_rwkv_runs_on_the_cpu(capsys):
+    """The RWKV family through the launcher: each request placed on the
+    ``rwkv6-1.6b/bf16`` engine's plan, the WKV scan on its plain version."""
+    from repro_torch.kernels import rwkv_scan as rs
+    before = rs.rwkv_scan.launches
+    stats = serve.main(["--arch", "rwkv6-1.6b", "--device", "cpu",
+                        "--requests", "2", "--gen", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3
+    assert lines[0].startswith("req 0 -> ") and "(c*=" in lines[0]
+    assert "generated 4 tokens x batch 2" in lines[1]
+    assert lines[2].startswith("stats: prefill 64 tok")
+    assert stats.decoded_tokens == 16 and stats.batches == 2
+    assert rs.rwkv_scan.launches == before
 
 
 def test_serve_without_a_card_raises(monkeypatch):
