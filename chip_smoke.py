@@ -34,6 +34,12 @@ Phases, in order; any failure exits non-zero:
        inputs (y within one bf16 ulp more), the update in place
        (``state_out=state``) equal to the one out of place;
        no PyTorch call computes the recurrence, so no library yardstick;
+   (f) ``moe_routing`` at [T, D, E, k] = [4096, 4096, 16, 2] (the phi3.5
+       prefill), [4, 4096, 16, 2] (a decode step), [1000, 4000, 16, 2],
+       [4096, 5120, 160, 6] (deepseek-v2), an underflowing probability and
+       tied experts, x in bf16 and f32, gates and mask bit-equal; no one
+       PyTorch call routes, so the three-call sequence (matmul, softmax,
+       topk + scatter) is timed as context;
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -62,6 +68,16 @@ Phases, in order; any failure exits non-zero:
    24 x 31 x 4 in decode, with no attention launch; its parity against
    ``rwkv_scan_plain`` in f32 and bf16, and its decode-step profile with
    the WKV share;
+4c-6c. the same for the MoE family: phi3.5-moe-42b-a6.6b at full width
+   with its depth cut from 32 to 24 layers (all 32 do not fit the card) in
+   bf16, the same 4 requests; the routing launches are counted from 0 and
+   must be 24 x 4 in prefill and 24 x 31 x 4 in decode, beside 24 x 4
+   flash and 24 x 31 x 4 decode-attention launches and no WKV launch; its
+   parity (i) with only the router on its plain version, logits and tokens
+   bit-identical, (ii) with all three kernels on their plain versions in
+   f32 on the first 4 layers and (iii) in bf16 on all 24, every routing
+   call's mask recorded and every step over the bound or parting of tokens
+   explained by a near-tie; its decode-step profile with the routing share;
 7. the kernels at their paths' mean shapes, one JSON line with each
    kernel's launches and times, then the card's line from ``nvidia-smi``,
    then the result.
@@ -120,6 +136,17 @@ RWKV_HOLDS = ((4, 1024, 32, 64, False), (4, 1, 32, 64, True),
 RWKV_REL = 1e-5
 # parity: max |logit delta| / max |plain logit| per row and step
 LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
+# the MoE serving cell: phi3.5-moe at full width, its depth cut from 32 to
+# 24 layers (all 32 are 83.7 GB in bf16, more than the card's 80 GB; 24 are
+# 62.9 GB), and 4 of them, in f32, for the f32 parity (21.9 GB)
+MOE_ARCH, MOE_LAYERS, MOE_F32_LAYERS = "phi3.5-moe-42b-a6.6b", 24, 4
+# the router (T, D, E, top_k, case): the phi3.5 prefill (4 x 1,024 tokens),
+# one decode step, a ragged shape, the deepseek-v2 shape, a probability
+# that underflows (one logit leads by > 110) and tied experts (duplicated
+# router columns); held bit for bit
+ROUTING_HOLDS = ((4096, 4096, 16, 2, "random"), (4, 4096, 16, 2, "random"),
+                 (1000, 4000, 16, 2, "random"), (4096, 5120, 160, 6, "random"),
+                 (512, 4096, 16, 2, "underflow"), (512, 4096, 16, 2, "tie"))
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -937,6 +964,85 @@ def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
     return r
 
 
+def routing_inputs(T, D, E, dtype, seed, case="random"):
+    """x [T, D] in ``dtype`` (standard normal) and the router [D, E] f32
+    (normal with std 1/sqrt(D), as the model draws it) on the card, from a
+    numpy seed.  "underflow": x[:, 0] = 1 and W[0, 0] = 120, so logit 0
+    leads by > 110 and every other probability underflows to 0 in f32;
+    "tie": experts 7 and 12 copy expert 1's column, which leads."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((T, D), dtype=np.float32)
+    w = (rng.standard_normal((D, E)) / math.sqrt(D)).astype(np.float32)
+    if case == "underflow":
+        x[:, 0] = 1.0
+        w[0, 0] = 120.0
+    elif case == "tie":
+        x[:, 0] = 1.0
+        w[0, 1] = 12.0
+        w[:, 7] = w[:, 12] = w[:, 1]
+    return (torch.from_numpy(x).to(device="cuda", dtype=dtype),
+            torch.from_numpy(w).cuda())
+
+
+def routing_held(gates, mask, gates_plain, mask_plain, top_k, case):
+    """Whether the kernel's gates and mask equal the plain version's bit
+    for bit, every row has k picks, and the constructed cases came out as
+    built (the underflow rows pick k experts though fewer than k gates are
+    > 0; the tied experts 1 and 7 are picked before 12)."""
+    import torch
+    ok = (torch.equal(gates, gates_plain) and torch.equal(mask, mask_plain)
+          and bool(torch.isfinite(gates).all())
+          and bool((mask.sum(-1) == top_k).all()))
+    if case == "underflow":
+        ok = ok and bool(((gates > 0).sum(-1) < top_k).all())
+    if case == "tie":
+        ok = ok and bool((mask[:, [1, 7]] == 1).all()) and not bool(
+            mask[:, 12].any())
+    return ok
+
+
+def hold_routing(T, D, E, top_k, case, dtype_name, rate):
+    """``moe_routing`` against ``moe_routing_plain`` on the same card
+    inputs, bit for bit, and the times: the kernel per call and on the
+    device, the plain version, and (as context only, no one PyTorch call
+    computes the function) the three-call sequence x.float() @ W, softmax,
+    topk + scatter."""
+    import torch
+    from repro_torch.kernels import moe_routing as mr
+    x, w = routing_inputs(T, D, E, getattr(torch, dtype_name), T + D + E,
+                          case)
+    label = (f"moe_routing (T, D, E, k)={(T, D, E, top_k)} {case} "
+             f"x {dtype_name}")
+    gates, mask = mr.moe_routing(x, w, top_k)
+    gates_plain, mask_plain = mr.moe_routing_plain(x, w, top_k)
+    torch.cuda.synchronize()
+    if not routing_held(gates, mask, gates_plain, mask_plain, top_k, case):
+        raise SystemExit(f"FAIL {label}: the kernel and its plain version "
+                         "differ (max abs gate err "
+                         f"{float((gates - gates_plain).abs().max())}, "
+                         f"{int((mask != mask_plain).sum())} mask entries)")
+
+    def sequence():
+        probs = torch.softmax(x.float() @ w, dim=-1)
+        vals, idx = probs.topk(top_k, dim=-1)
+        return torch.zeros_like(probs).scatter_(1, idx, vals)
+
+    nbytes = x.numel() * x.element_size() + w.numel() * 4 + 2 * T * E * 4
+    bound_ms, bound_by = attn_bound(2 * T * D * E, nbytes, "float32", rate)
+    r = {"max_abs_err": float((gates - gates_plain).abs().max()),
+         "exact": True,
+         "ms": time_ms(lambda: mr.moe_routing(x, w, top_k)),
+         "device_ms": device_ms(lambda: mr.moe_routing(x, w, top_k),
+                                "moe_routing_kernel"),
+         "plain_ms": time_ms(lambda: mr.moe_routing_plain(x, w, top_k),
+                             reps=3, batch=1),
+         "library_ms": None, "three_call_ms": time_ms(sequence),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"hold {label}: bit-equal, " + json.dumps(r), flush=True)
+    return r
+
+
 # ---------------------------------------------------------------------------
 # the serving path
 
@@ -1073,6 +1179,151 @@ def parity(model, params, toks, dtype_name, wrappers, plains):
         raise SystemExit(f"FAIL parity {model.cfg.name} {dtype_name}: "
                          f"{len(over)} steps over the bound or an "
                          "unexplained parting")
+    return line
+
+
+def routing_recorder(route, log):
+    """``route`` (the router's kernel or plain version), recording each
+    call's mask and (for the near-tie check) its f32 probabilities."""
+    import torch
+
+    def recorded(x, router_w, top_k):
+        gates, mask = route(x, router_w, top_k)
+        log.append((mask.bool(), torch.softmax(x.float() @ router_w, -1)))
+        return gates, mask
+    return recorded
+
+
+def first_routing_partings(log_k, log_p, rows, layers, top_k):
+    """Per batch row, the first routing decision (call, token) whose mask
+    differs between the two runs, with the plain run's gap between its
+    k-th and (k+1)-th probability and max |delta prob| of that token, and
+    whether it is a near-tie: a gap no larger than 2 max |delta prob|, as
+    far as the two probabilities can close it; and the count of differing
+    decisions."""
+    import torch
+    first, n_diff = {}, 0
+    for call, ((mk, pk), (mp, pp)) in enumerate(zip(log_k, log_p)):
+        diff = (mk != mp).any(-1)
+        n_diff += int(diff.sum())
+        per_row = diff.shape[0] // rows
+        for b in range(rows):
+            hit = diff[b * per_row:(b + 1) * per_row].nonzero()
+            if b in first or not hit.numel():
+                continue
+            tok = b * per_row + int(hit[0])
+            top = torch.sort(pp[tok], descending=True).values
+            gap = float(top[top_k - 1] - top[top_k])
+            dprob = float((pk[tok] - pp[tok]).abs().max())
+            first[b] = {"call": call, "step": call // layers, "token": tok,
+                        "gap": gap, "max_abs_dprob": dprob,
+                        "near_tie": gap <= 2.0 * dprob}
+    return first, n_diff
+
+
+def moe_parity(model, params, toks, dtype_name, wrappers, plains):
+    """``parity`` for the MoE path, where a routing flip at a near-tie
+    moves an expert's capacity slots and so every later token of its group:
+    the same prompts through the kernels and through their plain versions,
+    every routing call's mask recorded.  A step within ``LOGIT_BOUND``
+    passes; from a row's first differing routing decision on, a step over
+    the bound, or a parting of tokens, is explained only if that decision
+    was a near-tie in the plain run (gap between its k-th and (k+1)-th
+    probability <= 2 max |delta prob| of the token: each of the two moves
+    by at most max |delta prob|); a parting before it only by a top-2
+    logit near-tie, as in ``parity``."""
+    from contextlib import ExitStack
+    from repro_torch.kernels import moe_routing as mr
+    target = "repro_torch.models.layers.moe_routing"
+    runs = {}
+    for side, route in (("kernel", mr.moe_routing),
+                        ("plain", mr.moe_routing_plain)):
+        log = []
+        counts = launch_counts(wrappers)
+        with ExitStack() as stack:
+            if side == "plain":
+                for name, plain in plains.items():
+                    stack.enter_context(mock.patch(name, plain))
+            stack.enter_context(mock.patch(target,
+                                           routing_recorder(route, log)))
+            logits, out = traced_generate(model, params, toks)
+        launched = {k: n - counts[k] for k, n in launch_counts(wrappers).items()}
+        if side == "kernel" and not all(launched.values()):
+            raise SystemExit(f"FAIL moe parity: the kernel run launched "
+                             f"{launched}")
+        if side == "plain" and any(launched.values()):
+            raise SystemExit(f"FAIL moe parity: the plain run launched "
+                             f"{launched}")
+        runs[side] = (logits, out, log)
+    (logits_k, toks_k, log_k), (logits_p, toks_p, log_p) = (runs["kernel"],
+                                                           runs["plain"])
+    T, B = logits_p.shape[:2]
+    first, n_diff = first_routing_partings(log_k, log_p, B,
+                                           model.cfg.n_layers,
+                                           model.cfg.moe.top_k)
+    bound = LOGIT_BOUND[dtype_name]
+    equal, partings, worst, over = 0, [], 0.0, []
+    for b in range(B):
+        flip = first.get(b)
+        for t in range(T):
+            plain, delta = logits_p[t, b], logits_k[t, b] - logits_p[t, b]
+            dmax = float(delta.abs().max())
+            rel = dmax / float(plain.abs().max())
+            worst = max(worst, rel)
+            routed = (flip is not None and flip["step"] <= t
+                      and flip["near_tie"])
+            if rel > bound:
+                over.append({"row": b, "step": t, "rel": rel,
+                             "explained": routed})
+            if int(toks_k[b, t]) != int(toks_p[b, t]):
+                top2 = plain.topk(2).values
+                gap = float(top2[0] - top2[1])
+                partings.append({"row": b, "step": t, "gap": gap,
+                                 "max_abs_dlogit": dmax,
+                                 "explained": gap <= dmax or routed})
+                break
+            equal += 1
+    line = {"arch": model.cfg.name, "dtype": dtype_name,
+            "layers": model.cfg.n_layers, "rows": B, "steps": T,
+            "routing_calls": len(log_p), "differing_routing_decisions": n_diff,
+            "first_routing_parting": first, "equal_tokens": equal,
+            "bound": bound, "worst_rel_delta": worst, "partings": partings,
+            "over_bound": over}
+    print("moe_parity " + json.dumps(line), flush=True)
+    if (any(not o["explained"] for o in over)
+            or any(not p["explained"] for p in partings)):
+        raise SystemExit(f"FAIL moe parity {dtype_name}: a step over the "
+                         "bound or a parting of tokens is not explained")
+    return line
+
+
+def routing_exact_parity(model, params, toks, wrappers):
+    """The served path with only the router swapped for its plain version
+    (the attention kernels on in both runs): the logits of every step and
+    the tokens must be bit-identical."""
+    import torch
+    from repro_torch.kernels import moe_routing as mr
+    counts = launch_counts(wrappers)
+    logits_k, toks_k = traced_generate(model, params, toks)
+    mid = launch_counts(wrappers)
+    with mock.patch("repro_torch.models.layers.moe_routing",
+                    mr.moe_routing_plain):
+        logits_p, toks_p = traced_generate(model, params, toks)
+    end = launch_counts(wrappers)
+    line = {"arch": model.cfg.name, "dtype": model.cfg.dtype,
+            "layers": model.cfg.n_layers,
+            "kernel_run_launches": {k: mid[k] - counts[k] for k in mid},
+            "plain_router_run_launches": {k: end[k] - mid[k] for k in end},
+            "logits_equal": torch.equal(logits_k, logits_p),
+            "tokens_equal": torch.equal(toks_k, toks_p),
+            "max_abs_dlogit": float((logits_k - logits_p).abs().max())}
+    print("routing_parity " + json.dumps(line), flush=True)
+    if (not line["logits_equal"] or not line["tokens_equal"]
+            or not line["kernel_run_launches"]["moe_routing"]
+            or line["plain_router_run_launches"]["moe_routing"]
+            or not line["plain_router_run_launches"]["flash_attention"]):
+        raise SystemExit("FAIL routing parity: the router's kernel and its "
+                         "plain version part on the served path")
     return line
 
 
@@ -1245,6 +1496,13 @@ def main() -> int:
                   for shape in RWKV_HOLDS}
     torch.cuda.empty_cache()
 
+    # 2f. the MoE router against its plain version, bit for bit
+    routing_holds = {shape + (dtype_name,): hold_routing(*shape, dtype_name,
+                                                         rate)
+                     for dtype_name in ("bfloat16", "float32")
+                     for shape in ROUTING_HOLDS}
+    torch.cuda.empty_cache()
+
     # 3. the scheduling path at full size
     cd = characterize()
     fleet = synth_fleet(*POOLS)
@@ -1299,10 +1557,13 @@ def main() -> int:
     attn = {"flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention}
     L = cfg.n_layers
+    from repro_torch.kernels import moe_routing as mr
     serve_launches = serve_run(
-        model, params, prompts, attn,
-        {"flash_attention": L * REQUESTS, "decode_attention": 0},
-        {"flash_attention": 0, "decode_attention": L * (GEN - 1) * REQUESTS})
+        model, params, prompts, {**attn, "moe_routing": mr.moe_routing},
+        {"flash_attention": L * REQUESTS, "decode_attention": 0,
+         "moe_routing": 0},
+        {"flash_attention": 0, "decode_attention": L * (GEN - 1) * REQUESTS,
+         "moe_routing": 0})
     attn_plains = {
         "repro_torch.models.common.flash_attention": fa.flash_attention_plain,
         "repro_torch.models.common.decode_attention":
@@ -1335,11 +1596,11 @@ def main() -> int:
     wkv = {"rwkv_scan": rs.rwkv_scan, **attn}
     L = rcfg.n_layers
     rwkv_launches = serve_run(
-        rmodel, params, prompts, wkv,
+        rmodel, params, prompts, {**wkv, "moe_routing": mr.moe_routing},
         {"rwkv_scan": L * REQUESTS, "flash_attention": 0,
-         "decode_attention": 0},
+         "decode_attention": 0, "moe_routing": 0},
         {"rwkv_scan": L * (GEN - 1) * REQUESTS, "flash_attention": 0,
-         "decode_attention": 0})
+         "decode_attention": 0, "moe_routing": 0})
     wkv_plains = {"repro_torch.models.layers.rwkv_scan": rs.rwkv_scan_plain}
     parity(rmodel, params, prompts[0], "bfloat16", wkv, wkv_plains)
     rwkv_profile = decode_profile(rmodel, params, prompts[0],
@@ -1348,6 +1609,60 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity(build_model(dataclasses.replace(rcfg, dtype="float32")), params,
            prompts[0], "float32", wkv, wkv_plains)
+    del params, prompts
+    torch.cuda.empty_cache()
+
+    # 4c-6c. the MoE serving path: phi3.5-moe at full width with 24 of its
+    # 32 layers, its parity (i: the router alone, bit for bit; iii: all
+    # three kernels in bf16; ii: all three in f32 on the first 4 layers), a
+    # decode-step profile
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    mmodel = build_model(mcfg)
+    t0 = time.perf_counter()
+    params = mmodel.init_params(torch.Generator(device=mmodel.device)
+                                .manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"params: {MOE_ARCH} {mcfg.dtype}, {mcfg.n_layers} of "
+          f"{get_config(MOE_ARCH).n_layers} layers x d_model {mcfg.d_model}, "
+          f"{mcfg.moe.n_experts} experts top-{mcfg.moe.top_k}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s; depth cut to "
+          f"{MOE_LAYERS}: all 32 layers are 83.7 GB in bf16, more than the "
+          "card's 80 GB, and 24 leave ~15 GB for the cache and activations",
+          flush=True)
+    rng = torch.Generator(device=mmodel.device).manual_seed(1)
+    prompts = [torch.randint(0, mcfg.vocab, (SERVE_BATCH, PROMPT),
+                             generator=rng, device=mmodel.device)
+               for _ in range(REQUESTS)]
+    moe_w = {"moe_routing": mr.moe_routing, **attn}
+    L = mcfg.n_layers
+    moe_launches = serve_run(
+        mmodel, params, prompts, {**moe_w, "rwkv_scan": rs.rwkv_scan},
+        {"moe_routing": L * REQUESTS, "flash_attention": L * REQUESTS,
+         "decode_attention": 0, "rwkv_scan": 0},
+        {"moe_routing": L * (GEN - 1) * REQUESTS, "flash_attention": 0,
+         "decode_attention": L * (GEN - 1) * REQUESTS, "rwkv_scan": 0})
+    routing_exact_parity(mmodel, params, prompts[0], moe_w)
+    moe_parity(mmodel, params, prompts[0], "bfloat16", moe_w, attn_plains)
+    moe_profile = decode_profile(mmodel, params, prompts[0],
+                                 share=("moe_routing_share",
+                                        "moe_routing_kernel"))
+    # the f32 parity on the first layers: cloned in bf16, the served params
+    # freed, and only then cast, so the card never holds both
+    if len(params["groups"]) != 1:
+        raise SystemExit(f"FAIL {MOE_ARCH}: {len(params['groups'])} layer "
+                         "groups, expected 1")
+    first = {"embed": tree_map(lambda t: t.clone(), params["embed"]),
+             "groups": [tree_map(lambda t: t[:MOE_F32_LAYERS].clone(),
+                                 params["groups"][0])]}
+    del params
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.float(), first)
+    del first
+    torch.cuda.empty_cache()
+    moe_parity(build_model(dataclasses.replace(
+        mcfg, n_layers=MOE_F32_LAYERS, dtype="float32")), params, prompts[0],
+        "float32", moe_w, attn_plains)
     del params, prompts
     torch.cuda.empty_cache()
 
@@ -1441,8 +1756,29 @@ def main() -> int:
         "shape": list(pre_shape[:4]), "dtype": "float32",
         "decode_step": dict({k: dec[k] for k in TIMES + ("bound_by",)},
                             shape=list(dec_shape[:4]))})
+    # the router at the MoE serving path's shapes (x in bf16, the model's),
+    # from 2f: the prefill and, under "decode_step", one decode step
+    n_exp, top_k = mcfg.moe.n_experts, mcfg.moe.top_k
+    pre_shape = (SERVE_BATCH * PROMPT, mcfg.d_model, n_exp, top_k, "random")
+    dec_shape = (SERVE_BATCH, mcfg.d_model, n_exp, top_k, "random")
+    pre = routing_holds[pre_shape + ("bfloat16",)]
+    dec = routing_holds[dec_shape + ("bfloat16",)]
+    rows.append({
+        "name": "moe_routing", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_routing.cu",
+        "replaces": "src/repro/kernels/moe_routing.py:21",
+        "launches": moe_launches["moe_routing"],
+        "max_abs_err": max(r["max_abs_err"] for r in routing_holds.values()),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None, "three_call_ms": pre["three_call_ms"],
+        "device_ms": pre["device_ms"], "shape": list(pre_shape[:4]),
+        "dtype": "bfloat16",
+        "decode_step": dict({k: dec[k] for k in TIMES + ("bound_by",)},
+                            shape=list(dec_shape[:4]))})
     for line, key in ((profile_line, "decode_attention_share"),
-                      (rwkv_profile, "wkv_share")):
+                      (rwkv_profile, "wkv_share"),
+                      (moe_profile, "moe_routing_share")):
         print(f"decode step {line['arch']}: " + json.dumps(
             {k: line[k] for k in ("host_ms_per_step", "device_ms_per_step",
                                   "idle_share", key)}))

@@ -8,10 +8,10 @@ selection via Eq. 1-4 against the offline Configuration Dictionary).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
         [--batch 2] [--prompt-len 16] [--gen 8] [--requests 3] [--device cpu]
 
-It runs on the card (the attention kernels, the WKV scan) unless
-``--device cpu`` asks for the CPU (their plain versions).  The dense and
-RWKV families are ported; other families raise ``NotImplementedError``
-naming the slice they wait for.
+It runs on the card (the attention kernels, the WKV scan, the MoE router)
+unless ``--device cpu`` asks for the CPU (their plain versions).  The
+dense, RWKV and MoE (phi3.5-moe) families are ported; other families raise
+``NotImplementedError`` naming the slice they wait for.
 """
 
 from __future__ import annotations

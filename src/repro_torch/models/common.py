@@ -22,6 +22,7 @@ place.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional
 
@@ -44,10 +45,18 @@ def _normal(generator, shape, device):
 def dense_init(generator, shape, in_axis=-2, dtype=torch.float32,
                device=None, lead=()):
     """Normal with std 1/sqrt(fan_in), fan-in on ``in_axis`` of ``shape``;
-    ``lead`` prepends stacking dimensions (one draw per layer)."""
+    ``lead`` prepends stacking dimensions (one draw per layer).  The result
+    is allocated in ``dtype`` and filled one leading index at a time (drawn
+    in f32, scaled in place, cast into its slot), so the f32 temporary is
+    one layer's tensor, not the whole stack's."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    x = _normal(generator, tuple(lead) + tuple(shape), device)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
+                      device=device if device is not None
+                      else generator.device)
+    for idx in itertools.product(*(range(n) for n in lead)):
+        x = _normal(generator, tuple(shape), out.device)
+        out[idx] = x.div_(math.sqrt(fan_in))
+    return out
 
 
 def embed_init(generator, shape, dtype=torch.float32, device=None):

@@ -4,7 +4,8 @@
 ``model.init_params(...)`` returns, after ``jax.tree.map(np.asarray, ...)``,
 and returns the same nested dict of tensors on ``device``, dtype for dtype:
 the port keeps the JAX keys and the per-group stacking, so the map is
-structural.  bfloat16 arrays (numpy's ``ml_dtypes`` type) keep their bits.
+structural (an MoE layer's ``moe`` subtree too, its f32 router staying
+f32).  bfloat16 arrays (numpy's ``ml_dtypes`` type) keep their bits.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-# Port of repro/models/decoder.py: the grouped decoder stack on torch (kinds "dense" and "rwkv").
+# Port of repro/models/decoder.py: the grouped decoder stack on torch (kinds "dense", "moe" and "rwkv").
 """Generic grouped decoder stack.
 
 Layers are described by a per-layer ``LayerSpec``; consecutive identical
@@ -6,11 +6,11 @@ specs form a ``Group`` whose params carry a leading ``n`` (layer) dimension,
 the same stacking as the JAX package, so its params map key for key.  Where
 JAX scans a group with ``lax.scan``, the port loops over its layers.
 
-The port runs kinds ``"dense"`` and ``"rwkv"`` in prefill and decode.  The
-other kinds (moe, hymba, cross, encdec_dec), MLA and ``mode="train"`` raise
-``NotImplementedError`` naming the slice they wait for.  The JAX stack's
-``constrain_seq`` is a no-op off a device mesh and waits for the sharding
-slice.
+The port runs kinds ``"dense"``, ``"moe"`` and ``"rwkv"`` in prefill and
+decode.  The other kinds (hymba, cross, encdec_dec), MLA and
+``mode="train"`` raise ``NotImplementedError`` naming the slice they wait
+for.  The JAX stack's ``constrain_seq`` is a no-op off a device mesh and
+waits for the sharding slice.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from repro_torch.models.common import rms_norm
 # kinds: dense | moe | rwkv | hymba | cross | encdec_dec
 
 _LATER = {
-    "moe": "the MoE slice (moe_routing)",
     "hymba": "the Mamba/hymba slice",
     "cross": "the cross-attention/VLM slice",
     "encdec_dec": "the encoder-decoder slice",
@@ -86,7 +85,7 @@ def _check_ported(spec: LayerSpec):
 
 
 # ----------------------------------------------------------------------------
-# per-group init / forward (kinds "dense" and "rwkv")
+# per-group init / forward (kinds "dense", "moe" and "rwkv")
 
 
 def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
@@ -96,12 +95,17 @@ def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
         return {"ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
                 **layers.init_rwkv_layer(generator, cfg, dtype, device, lead),
                 "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device)}
-    return {
+    p = {
         "ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
         "attn": layers.init_attention(generator, cfg, dtype, device, lead),
         "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device),
-        "mlp": common.init_mlp(generator, D, cfg.d_ff, dtype, device, lead),
     }
+    if g.spec.kind == "moe":     # the router stays f32 (init_moe)
+        p["moe"] = layers.init_moe(generator, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = common.init_mlp(generator, D, cfg.d_ff, dtype, device,
+                                   lead)
+    return p
 
 
 def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, dtype,
@@ -130,9 +134,10 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
                                       cache=cache, pos=pos,
                                       window=spec.window)
     x = x + h
-    x = x + common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                       cfg.act)
-    return x, a_cache
+    xin = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if spec.kind == "moe":
+        return x + layers.moe_ffn(p["moe"], cfg, xin), a_cache
+    return x + common.mlp(p["mlp"], xin, cfg.act), a_cache
 
 
 # ----------------------------------------------------------------------------

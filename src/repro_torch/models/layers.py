@@ -1,10 +1,13 @@
-# Port of repro/models/layers.py: the GQA self-attention and RWKV6 sublayers on torch; the WKV recurrence runs on the CUDA kernel.
-"""The GQA self-attention sublayer (dense decoders and, in later slices, the
-MoE, VLM and hybrid stacks), with its KV cache, and the RWKV6 (Finch) time-
-and channel-mix sublayers, with their recurrent cache.
+# Port of repro/models/layers.py: the GQA self-attention, MoE FFN and RWKV6 sublayers on torch; the MoE router and the WKV recurrence run on CUDA kernels.
+"""The GQA self-attention sublayer (dense and MoE decoders and, in later
+slices, the VLM and hybrid stacks), with its KV cache; the MoE FFN
+(GShard-style capacity dispatch); and the RWKV6 (Finch) time- and
+channel-mix sublayers, with their recurrent cache.
 
     init_attention(generator, cfg, dtype) -> params
     attn_sublayer(params, cfg, x, *, mode, cache, pos, window) -> (y, cache)
+    init_moe(generator, cfg, dtype) -> {"router" (f32), "wi", "wg", "wo"}
+    moe_ffn(params, cfg, x) -> y
     init_rwkv_layer(generator, cfg, dtype) -> {"tm", "cm"}
     rwkv_time_mix(params, cfg, x, *, mode, cache) -> (y, {"state", "tm_shift"})
     rwkv_channel_mix(params, cfg, x, *, mode, cache) -> (y, cm_shift)
@@ -18,11 +21,15 @@ Caches are written in place in decode (where JAX returns updated buffers):
 the attention cache at the token's slot, the RWKV state by the ``rwkv_scan``
 kernel itself (``state_out=state``) and the two token shifts by a copy.  The
 WKV recurrence, which the JAX layer runs as ``common.chunked_time_scan`` (a
-remat device for training), runs on ``kernels.rwkv_scan``.  The JAX
-package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN`` switches are
-sharding options, off by default, and wait for the sharding slice.
-Cross-attention, MLA, MoE and Mamba sublayers wait for their slices
-(``decoder.py`` raises for them).
+remat device for training), runs on ``kernels.rwkv_scan``.  The MoE
+router (the JAX ``_route``/``_route_grouped``: logits, softmax, top-k mask
+and renormalized gates) runs on ``kernels.moe_routing``; the expert products
+stay ``torch.einsum``, plain large products that the JAX package leaves to
+XLA.  The JAX package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN``
+switches and the MoE sharding constraints (``constrain_moe_groups``,
+``constrain_moe_expert``, the identity off a device mesh) wait for the
+sharding slice.  Cross-attention, MLA and Mamba sublayers wait for their
+slices (``decoder.py`` raises for them).
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.kernels.rwkv_scan import rwkv_scan
+from repro_torch.models import common
 from repro_torch.models.common import (apply_rope, attention, dense_init,
                                        head_rms_norm, rope_freqs)
 
@@ -118,6 +127,83 @@ def attn_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos, window):
     H, hd = cfg.n_heads, cfg.head_dim
     y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, new_cache
+
+
+# =============================================================================
+# MoE FFN: GShard-style capacity dispatch, in groups of tokens
+# =============================================================================
+
+MOE_CHUNK = 256  # tokens per dispatch group
+
+
+def init_moe(generator, cfg: ModelConfig, dtype, device=None, lead=()):
+    e = cfg.moe
+    ff = e.d_ff_expert or cfg.d_ff
+    D = cfg.d_model
+    kw = dict(device=device, lead=lead)
+    p = {
+        "router": dense_init(generator, (D, e.n_experts), in_axis=0,
+                             dtype=torch.float32, **kw),
+        "wi": dense_init(generator, (e.n_experts, D, ff), in_axis=1,
+                         dtype=dtype, **kw),
+        "wg": dense_init(generator, (e.n_experts, D, ff), in_axis=1,
+                         dtype=dtype, **kw),
+        "wo": dense_init(generator, (e.n_experts, ff, D), in_axis=-1,
+                         dtype=dtype, **kw),
+    }
+    if e.n_shared:
+        p["shared"] = common.init_mlp(generator, D, e.n_shared * ff, dtype,
+                                      device, lead)
+    return p
+
+
+def _route(p, cfg: ModelConfig, xf):
+    """xf: [T, D] -> (gates [T, E] f32 with zeros off top-k, mask [T, E])."""
+    return moe_routing(xf.contiguous(), p["router"], cfg.moe.top_k)
+
+
+def _route_grouped(p, cfg: ModelConfig, xg):
+    """xg: [B, G, T, D] -> (gates, mask) [B, G, T, E] f32."""
+    gates, mask = _route(p, cfg, xg.reshape(-1, xg.shape[-1]))
+    shape = tuple(xg.shape[:-1]) + (gates.shape[-1],)
+    return gates.view(shape), mask.view(shape)
+
+
+def moe_ffn(p, cfg: ModelConfig, x):
+    """GShard grouped capacity dispatch, as the JAX ``moe_ffn``: the
+    sequence is split into groups of ``MOE_CHUNK`` tokens (the whole
+    sequence where it does not divide), each group dispatches into
+    per-expert capacity buffers through dense one-hot einsums, and a token
+    past its expert's capacity is dropped.  A slot index of -1 or >=
+    capacity one-hots to a zero row, as ``jax.nn.one_hot`` makes it."""
+    e = cfg.moe
+    B, S, D = x.shape
+    g = min(MOE_CHUNK, S)
+    if S % g:
+        g = S
+    G = S // g
+    capacity = max(e.top_k, int(g / e.n_experts * e.top_k
+                                * e.capacity_factor))
+    xg = x.reshape(B, G, g, D)
+    gates, mask = _route_grouped(p, cfg, xg)
+    # position of each token within its expert's capacity buffer (per group)
+    pos_in_exp = torch.cumsum(mask, dim=2) - 1.0
+    keep = mask * (pos_in_exp < capacity)
+    slots = torch.arange(capacity, dtype=torch.int32, device=x.device)
+    dispatch = keep[..., None] * (
+        pos_in_exp.to(torch.int32)[..., None] == slots)    # [B,G,T,E,C]
+    combine = dispatch * gates[..., None]
+    dt = x.dtype
+    exp_in = torch.einsum("bgtec,bgtd->bgecd", dispatch.to(dt), xg)
+    a = torch.einsum("bgecd,edf->bgecf", exp_in, p["wi"])
+    h = torch.einsum("bgecd,edf->bgecf", exp_in, p["wg"])
+    act = F.gelu(h, approximate="tanh") if cfg.act == "gelu" else F.silu(h)
+    exp_out = torch.einsum("bgecf,efd->bgecd", a * act, p["wo"])
+    out = torch.einsum("bgtec,bgecd->bgtd", combine.to(dt), exp_out)
+    out = out.reshape(B, S, D)
+    if e.n_shared:
+        out = out + common.mlp(p["shared"], x, cfg.act)
+    return out
 
 
 # =============================================================================

@@ -17,7 +17,8 @@ the JAX initialisers' distributions, not their values; to run the JAX
 package's params, convert them with ``models.convert.from_jax``.
 
 The model runs on the card unless ``device="cpu"`` is asked for.  The
-encoder-decoder family and ``train_loss`` wait for their slices.
+dense, MoE (without MLA) and RWKV families run; the encoder-decoder family
+and ``train_loss`` wait for their slices.
 """
 
 from __future__ import annotations

@@ -277,3 +277,67 @@ def test_rwkv_model_on_the_card_matches_the_cpu(no_tf32):
     want = InferenceEngine(cpu, params, max_len=60).generate(
         {"tokens": toks}, 6)
     assert torch.equal(out.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the MoE router: kernel and plain version do the same f32 roundings in the
+# same order (lane sums in increasing d, a fixed lane tree, the softmax and
+# gate sums in expert-index order, expf as torch.exp), so gates and mask
+# are equal bit for bit
+
+
+@pytest.mark.parametrize("T,D,E,k,case", [
+    (1, 64, 16, 2, "random"), (37, 100, 8, 3, "random"),
+    (300, 4096, 16, 2, "random"), (129, 513, 160, 6, "random"),
+    (64, 256, 16, 2, "underflow"), (64, 256, 16, 2, "tie"),
+    (16, 33, 5, 5, "random"), (17, 31, 1, 1, "random")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routing_kernel_matches_plain_version(card, T, D, E, k, case, dtype):
+    from repro_torch.kernels import moe_routing as mr
+    x, w = chip_smoke.routing_inputs(T, D, E, dtype, T + D + E, case)
+    before = mr.moe_routing.launches
+    gates, mask = mr.moe_routing(x, w, k)
+    torch.cuda.synchronize()
+    assert mr.moe_routing.launches == before + 1
+    assert gates.shape == mask.shape == (T, E)
+    gates_plain, mask_plain = mr.moe_routing_plain(x, w, k)
+    assert chip_smoke.routing_held(gates, mask, gates_plain, mask_plain, k,
+                                   case)
+
+
+def test_routing_kernel_takes_no_token_without_a_launch(card):
+    from repro_torch.kernels import moe_routing as mr
+    x, w = chip_smoke.routing_inputs(0, 64, 16, torch.bfloat16, 0)
+    before = mr.moe_routing.launches
+    gates, mask = mr.moe_routing(x, w, 2)
+    assert mr.moe_routing.launches == before
+    assert gates.shape == mask.shape == (0, 16) and gates.is_cuda
+    with pytest.raises(ValueError, match="router_w on"):
+        mr.moe_routing(x, w.cpu(), 2)
+
+
+def test_moe_model_on_the_card_matches_the_cpu(no_tf32):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_routing as mr
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    before = (mr.moe_routing.launches, fa.flash_attention.launches,
+              da.decode_attention.launches)
+    out = InferenceEngine(gpu, _to(params, gpu.device), max_len=60).generate(
+        {"tokens": toks.cuda()}, 6)
+    L = cfg.n_layers
+    assert (mr.moe_routing.launches, fa.flash_attention.launches,
+            da.decode_attention.launches) == (
+        before[0] + L * 6, before[1] + L, before[2] + L * 5)
+    want = InferenceEngine(cpu, params, max_len=60).generate(
+        {"tokens": toks}, 6)
+    assert torch.equal(out.cpu(), want)
