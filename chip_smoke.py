@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit, the PyTorch version; build every CUDA
    source in ``src/repro_torch/kernels/csrc`` in parallel (one ``nvcc``
-   each), time the build and print ``ptxas``'s register lines;
+   each), time the build and print ``ptxas``'s register and spill lines
+   (every flash instantiation's among them) and each flash kernel's
+   tensor-core (``HMMA``) instructions from ``cuobjdump``'s SASS (the bf16
+   kernels must have them, the f32 ones none);
 2. each kernel against its plain PyTorch version on the card, with the
    kernel's, the plain version's and the bound's milliseconds:
    (a) the v1 and v2 scoring kernels at (J, W) = (2048, 256), (2043, 256),
@@ -21,7 +24,9 @@ Phases, in order; any failure exits non-zero:
        and -0.0 urgencies, K > 1 admission masks; exactly;
    (c) ``flash_attention`` at the serving shape [B, S, H, K, hd] =
        [4, 1024, 32, 8, 128] causal, a ragged danube-like shape (S = 1,000,
-       hd 80, window 256) and a gemma-like MQA shape (hd 256, K = 1), and
+       hd 80, window 256) and a gemma-like MQA shape (hd 256, K = 1), the
+       profiler showing the tensor-core kernel for bf16 and the FMA kernel
+       for f32, and
    (d) ``decode_attention`` on the serving buffer [4, 1064, 32, 8, 128] at
        k_valid 1, 1025 and 1064, a ragged hd-80 buffer and an hd-256 MQA
        buffer; both in f32 (within 2e-5, TF32 off) and bf16 (within one
@@ -79,7 +84,8 @@ Phases, in order; any failure exits non-zero:
    call's mask recorded and every step over the bound or parting of tokens
    explained by a near-tie; its decode-step profile with the routing share;
 7. the kernels at their paths' mean shapes, one JSON line with each
-   kernel's launches and times, then the card's line from ``nvidia-smi``,
+   kernel's launches and times (the redesigned flash and walk also with
+   their earlier device time), then the card's line from ``nvidia-smi``,
    then the result.
 
 It needs a CUDA card and a checkout (``src/repro_torch`` beside it), and
@@ -422,12 +428,13 @@ def time_ms(fn, reps=REPS, batch=BATCH) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, kernel_name, reps=REPS, tries=3):
+def device_ms(fn, kernel_name, reps=REPS, tries=3, names=None):
     """Device time of one call of ``fn`` in the CUDA kernels whose names
     contain ``kernel_name`` (each kernel's mean over ``reps`` calls, summed
-    over the kernels), from the profiler's trace.  A trace now and then
-    holds no device time for them; it is taken again, up to ``tries``
-    times, and None is returned if none does."""
+    over the kernels), from the profiler's trace; their full names are
+    appended to ``names`` if it is a list.  A trace now and then holds no
+    device time for them; it is taken again, up to ``tries`` times, and
+    None is returned if none does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -437,13 +444,58 @@ def device_ms(fn, kernel_name, reps=REPS, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ms = [evt.device_time_total / evt.count / 1e3
-              for evt in prof.key_averages()
-              if kernel_name in evt.key and evt.count
-              and getattr(evt, "device_time_total", 0)]
-        if ms:
-            return sum(ms)
+        found = [evt for evt in prof.key_averages()
+                 if kernel_name in evt.key and evt.count
+                 and getattr(evt, "device_time_total", 0)]
+        if found:
+            if names is not None:
+                names.extend(sorted(evt.key for evt in found))
+            return sum(evt.device_time_total / evt.count / 1e3
+                       for evt in found)
     return None
+
+
+def sass_counts(lib, opcode):
+    """Instructions of ``opcode`` in each kernel of the shared library
+    ``lib``, by mangled name, from ``cuobjdump -sass``; None where the
+    toolkit has no ``cuobjdump``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True)
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def flash_hmma_report():
+    """Print each flash kernel's tensor-core instructions (``HMMA`` in the
+    SASS); fail if a bf16 kernel has none or an f32 kernel has any.  Their
+    registers and spills are ``ptxas``'s lines above."""
+    from repro_torch.kernels import _build
+    sass = sass_counts(_build.library_path("flash_attention"), "HMMA")
+    if sass is None:
+        print("  flash: no cuobjdump, tensor-core instructions not counted")
+        return
+    kinds = set()
+    for name, hmma in sorted(sass.items()):
+        if "flash_attention_kernel" not in name:
+            continue
+        mma = "flash_attention_kernel_mma" in name
+        if (hmma > 0) != mma:
+            raise SystemExit(f"FAIL {name}: {hmma} HMMA instructions")
+        kinds.add(mma)
+        print(f"  cuobjdump {name}: {hmma} HMMA", flush=True)
+    if kinds != {True, False}:
+        raise SystemExit("FAIL flash: the SASS lacks the mma or the fma "
+                         "kernels")
 
 
 def to_card(arrays):
@@ -816,14 +868,16 @@ def hold_attention(label, kernel_name, wrapper, plain, library, inputs,
         raise SystemExit(f"FAIL {label}: {bad} elements outside rtol {rtol}, "
                          f"atol {atol} (max abs err {float(err.max())})")
     bound_ms, bound_by = attn_bound(ops, nbytes, dtype_name, rate)
+    names = []
     r = {"max_abs_err": float(err.max()), "rtol": rtol, "atol": atol,
          "ms": time_ms(lambda: wrapper(*inputs)),
-         "device_ms": device_ms(lambda: wrapper(*inputs), kernel_name),
+         "device_ms": device_ms(lambda: wrapper(*inputs), kernel_name,
+                                names=names),
          "plain_ms": time_ms(lambda: plain(*inputs), reps=5, batch=2),
          "library_ms": time_ms(lambda: library(*inputs)),
          "library_max_abs_err": float((lib.float() - want.float()).abs()
                                       .max()),
-         "bound_ms": bound_ms, "bound_by": bound_by}
+         "bound_ms": bound_ms, "bound_by": bound_by, "kernels": names}
     print(f"hold {label}: within tolerance, " + json.dumps(r), flush=True)
     return r
 
@@ -846,17 +900,27 @@ def hold_flash(B, S, H, K, hd, window, dtype_name, rate):
             attn_mask=ok, is_causal=ok is None,
             enable_gqa=True).transpose(1, 2)
 
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True, window=window)
+
     esize = inputs[0].element_size()
-    return hold_attention(
-        f"flash_attention (B, S, H, K, hd, window)="
-        f"{(B, S, H, K, hd, window)} {dtype_name}", "flash_attention_kernel",
-        lambda q, k, v: fa.flash_attention(q, k, v, causal=True,
-                                           window=window),
+    label = (f"flash_attention (B, S, H, K, hd, window)="
+             f"{(B, S, H, K, hd, window)} {dtype_name}")
+    r = hold_attention(
+        label, "flash_attention_kernel", kernel,
         lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=True,
                                                  window=window),
         sdpa, inputs, dtype_name,
         4 * B * H * visible_pairs(S, S, True, window) * hd,
         esize * (2 * B * S * H * hd + 2 * B * S * K * hd), rate)
+    # bf16 runs on the tensor cores, f32 on the FMA kernel, by dtype (the
+    # names from the trace that timed it)
+    want = ("flash_attention_kernel_mma" if dtype_name == "bfloat16"
+            else "flash_attention_kernel_fma")
+    if (r["device_ms"] is None or not r["kernels"]
+            or any(want not in n for n in r["kernels"])):
+        raise SystemExit(f"FAIL {label}: launched {r['kernels']}, not {want}")
+    return r
 
 
 def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
@@ -1427,8 +1491,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for source in _build.SOURCES:
         for line in _build.build_log.get(source, "").splitlines():
-            if "registers" in line or "Compiling" in line or "spill" in line:
+            if any(key in line for key in ("registers", "Compiling", "spill",
+                                           "Function properties")):
                 print("  ptxas " + line.strip())
+    flash_hmma_report()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -1726,11 +1792,12 @@ def main() -> int:
             ("decode_attention", decode, 24,
              [SERVE_BATCH, PROMPT + GEN + 8, cfg.n_heads, cfg.n_kv_heads,
               cfg.head_dim, mean_valid])):
+        # both attention serving paths: qwen3-4b and phi3.5-moe
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": f"src/repro/kernels/{kname}.py:{line}",
-            "launches": serve_launches[kname],
+            "launches": serve_launches[kname] + moe_launches[kname],
             "max_abs_err": max(attn_worst[kname], r["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

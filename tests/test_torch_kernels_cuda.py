@@ -5,9 +5,11 @@ fixture, never at import).  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-The tolerance is exact (NaN matched by position): kernel and plain version
-do the same IEEE float32 operations in the same order.  ``chip_smoke.py``
-holds the same kernels at the main path's full shapes."""
+The scheduling, scan and routing kernels are held exactly (NaN matched by
+position): kernel and plain version do the same IEEE float32 operations in
+the same order.  The attention kernels are held within ``ATTN_TOL``: they
+sum in another order (the bf16 flash kernel on the tensor cores).
+``chip_smoke.py`` holds the same kernels at the main path's full shapes."""
 
 import importlib.util
 from pathlib import Path
@@ -82,6 +84,47 @@ def test_tick_kernels_match_plain_versions(card, J, cap, W, use_energy):
         assert chip_smoke.exact(a, b)
 
 
+def _walk_inputs(J, W, case, seed):
+    """(ranked, order, slots, open0) for the greedy walk: small integer
+    costs (ties), +inf scattered, one NaN in some rows and one -inf in
+    others (each places nothing); "runs_out" opens fewer workers than there
+    are finite rows, so n_open reaches 0 mid-walk; "early_pad" puts a
+    padded row third in the order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ranked = rng.integers(0, 6, (J, W)).astype(np.float32)
+    ranked[rng.random((J, W)) < 0.15] = np.inf
+    for bad in (np.nan, -np.inf):
+        rows = np.nonzero(rng.random(J) < 0.05)[0]
+        ranked[rows, rng.integers(0, W, len(rows))] = bad
+    slots = np.arange(J, dtype=np.int32)
+    open0 = rng.random(W) < 0.8
+    if case == "runs_out":
+        ranked = np.nan_to_num(ranked, nan=1.0, posinf=2.0, neginf=0.0)
+        open0[:] = False
+        open0[rng.choice(W, size=max(1, min(W, J) // 2), replace=False)] = True
+    order = rng.permutation(J).astype(np.int32)
+    if case == "early_pad" and J > 3:
+        slots[order[2]] = -1
+    return [torch.from_numpy(a).cuda() for a in (ranked, order, slots, open0)]
+
+
+@pytest.mark.parametrize("W", [1, 31, 33, 64, 1000, 1024, 1025, 2048, 3000,
+                               8192, 24576, 40000, 65537])
+@pytest.mark.parametrize("J,case", [(1, "messy"), (300, "messy"),
+                                    (300, "runs_out"), (40, "early_pad")])
+def test_greedy_walk_matches_plain_version(card, J, W, case):
+    inputs = _walk_inputs(J, W, case, seed=J * 7 + W)
+    before = ss.greedy_place.launches
+    assign = ss.greedy_place(*inputs)
+    torch.cuda.synchronize()
+    assert ss.greedy_place.launches == before + 1
+    want = ss.greedy_place_plain(*inputs)
+    assert chip_smoke.exact(assign, want)
+    if case == "runs_out":
+        assert int((want >= 0).sum()) == int(inputs[3].sum())
+
+
 def test_resident_cache_runs_on_the_card(card):
     from repro_torch.core.offline import characterize
     from repro_torch.core.scheduler import SynergAI
@@ -132,7 +175,12 @@ def no_tf32(card):
     (1, 333, 4, 1, 64, True, 100), (2, 257, 8, 2, 80, True, 64),
     (2, 300, 32, 8, 128, True, None), (1, 190, 8, 1, 256, True, None),
     (1, 70, 4, 2, 64, False, None), (1, 1, 4, 2, 128, True, None),
-    (1, 65, 64, 1, 16, True, 7)])
+    (1, 65, 64, 1, 16, True, 7),
+    # G = 5 (Hymba's grouping); a window narrower than a key tile;
+    # non-causal with a window; rows not a multiple of the CTA's
+    (2, 150, 25, 5, 64, True, None), (1, 97, 25, 5, 128, True, 40),
+    (1, 300, 8, 2, 128, True, 16), (2, 100, 10, 5, 80, False, 24),
+    (1, 77, 8, 2, 16, True, None), (1, 45, 8, 2, 256, True, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(no_tf32, B, S, H, K, hd, causal,
                                             window, dtype):
@@ -144,6 +192,21 @@ def test_flash_kernel_matches_plain_version(no_tf32, B, S, H, K, hd, causal,
     assert fa.flash_attention.launches == before + 1
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (5, 1, True, None), (40, 1, False, None), (100, 37, True, None),
+    (37, 100, True, None), (130, 70, True, 16), (64, 200, False, 50)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_other_key_lengths(no_tf32, Sq, Sk, causal, window,
+                                              dtype):
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(Sq * 1000 + Sk)
+    q, k, v = [torch.randn(s, generator=g).to(dtype).cuda()
+               for s in ((2, Sq, 8, 128), (2, Sk, 2, 128), (2, Sk, 2, 128))]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
 
 
