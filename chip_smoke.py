@@ -18,8 +18,9 @@ Phases, in order; any failure exits non-zero:
        (10000, 64) and (16384, 2048) on messy inputs, exactly (every
        output, NaN matched by position);
    (b) the device-resident tick (``tick_score_kernel``, the sort,
-       ``greedy_place_kernel``) at (J, cap, W) = (2043, 4096, 256),
-       (10000, 16384, 64) and (16384, 32768, 2048), energy off and on: inf
+       ``greedy_place_kernel``) at (J, cap, W) = (22, 506, 64) (the resident
+       main path's mean tick), (2043, 4096, 256), (10000, 16384, 64) and
+       (16384, 32768, 2048), energy off and on: inf
        rows and columns, slot -1 padding, doomed rows, f32 ties, NaN, ±inf
        and -0.0 urgencies, K > 1 admission masks; exactly;
    (c) ``flash_attention`` at the serving shape [B, S, H, K, hd] =
@@ -40,11 +41,14 @@ Phases, in order; any failure exits non-zero:
        (``state_out=state``) equal to the one out of place;
        no PyTorch call computes the recurrence, so no library yardstick;
    (f) ``moe_routing`` at [T, D, E, k] = [4096, 4096, 16, 2] (the phi3.5
-       prefill), [4, 4096, 16, 2] (a decode step), [1000, 4000, 16, 2],
-       [4096, 5120, 160, 6] (deepseek-v2), an underflowing probability and
-       tied experts, x in bf16 and f32, gates and mask bit-equal; no one
-       PyTorch call routes, so the three-call sequence (matmul, softmax,
-       topk + scatter) is timed as context;
+       prefill), [4, 4096, 16, 2] (a decode step), [1, 4096, 16, 2],
+       [SWITCH_T, 4096, 16, 2] (the first T of the prefill design),
+       [1000, 4000, 16, 2], [4096, 5120, 160, 6] (deepseek-v2), an
+       underflowing probability and tied experts, x in bf16 and f32, gates
+       and mask bit-equal; no one PyTorch call routes, so the three-call
+       sequence (matmul, softmax, topk + scatter) is timed as context; then
+       both of the kernel's designs (decode and prefill) at T on each side
+       of the switch-over, each bit-equal, with their device times;
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -83,10 +87,10 @@ Phases, in order; any failure exits non-zero:
    f32 on the first 4 layers and (iii) in bf16 on all 24, every routing
    call's mask recorded and every step over the bound or parting of tokens
    explained by a near-tie; its decode-step profile with the routing share;
-7. the kernels at their paths' mean shapes, one JSON line with each
-   kernel's launches and times (the redesigned flash and walk also with
-   their earlier device time), then the card's line from ``nvidia-smi``,
-   then the result.
+7. the card's floor for one launch (the profiler's device time of a
+   one-element ``torch.add``), the kernels at their paths' mean shapes, one
+   JSON line with each kernel's launches and times, then the card's line
+   from ``nvidia-smi``, then the result.
 
 It needs a CUDA card and a checkout (``src/repro_torch`` beside it), and
 imports nothing of JAX or of the JAX package.
@@ -108,7 +112,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SHAPES = ((2048, 256), (2043, 256), (10000, 64), (16384, 2048))
-TICK_SHAPES = ((2043, 4096, 256), (10000, 16384, 64), (16384, 32768, 2048))
+TICK_SHAPES = ((22, 506, 64), (2043, 4096, 256), (10000, 16384, 64),
+               (16384, 32768, 2048))
 N_JOBS = 10_000
 POOLS = (8, 28, 28)
 REPS = 25                 # timed samples per kernel (median reported)
@@ -147,10 +152,11 @@ LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 # 62.9 GB), and 4 of them, in f32, for the f32 parity (21.9 GB)
 MOE_ARCH, MOE_LAYERS, MOE_F32_LAYERS = "phi3.5-moe-42b-a6.6b", 24, 4
 # the router (T, D, E, top_k, case): the phi3.5 prefill (4 x 1,024 tokens),
-# one decode step, a ragged shape, the deepseek-v2 shape, a probability
-# that underflows (one logit leads by > 110) and tied experts (duplicated
-# router columns); held bit for bit
+# one decode step, one token, a ragged shape, the deepseek-v2 shape, a
+# probability that underflows (one logit leads by > 110) and tied experts
+# (duplicated router columns); held bit for bit (main adds the switch-over)
 ROUTING_HOLDS = ((4096, 4096, 16, 2, "random"), (4, 4096, 16, 2, "random"),
+                 (1, 4096, 16, 2, "random"),
                  (1000, 4000, 16, 2, "random"), (4096, 5120, 160, 6, "random"),
                  (512, 4096, 16, 2, "underflow"), (512, 4096, 16, 2, "tie"))
 
@@ -1028,10 +1034,10 @@ def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
     return r
 
 
-def routing_inputs(T, D, E, dtype, seed, case="random"):
+def routing_inputs(T, D, E, dtype, seed, case="random", device="cuda"):
     """x [T, D] in ``dtype`` (standard normal) and the router [D, E] f32
-    (normal with std 1/sqrt(D), as the model draws it) on the card, from a
-    numpy seed.  "underflow": x[:, 0] = 1 and W[0, 0] = 120, so logit 0
+    (normal with std 1/sqrt(D), as the model draws it) on ``device``, from
+    a numpy seed.  "underflow": x[:, 0] = 1 and W[0, 0] = 120, so logit 0
     leads by > 110 and every other probability underflows to 0 in f32;
     "tie": experts 7 and 12 copy expert 1's column, which leads."""
     import torch
@@ -1045,8 +1051,8 @@ def routing_inputs(T, D, E, dtype, seed, case="random"):
         x[:, 0] = 1.0
         w[0, 1] = 12.0
         w[:, 7] = w[:, 12] = w[:, 1]
-    return (torch.from_numpy(x).to(device="cuda", dtype=dtype),
-            torch.from_numpy(w).cuda())
+    return (torch.from_numpy(x).to(device=device, dtype=dtype),
+            torch.from_numpy(w).to(device))
 
 
 def routing_held(gates, mask, gates_plain, mask_plain, top_k, case):
@@ -1105,6 +1111,40 @@ def hold_routing(T, D, E, top_k, case, dtype_name, rate):
          "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"hold {label}: bit-equal, " + json.dumps(r), flush=True)
     return r
+
+
+def router_designs(T, D, E, top_k, rate):
+    """Both of the router kernel's designs at [T, D, E, top_k], x in bf16:
+    each bit-equal to the plain version, and each one's device time."""
+    import torch
+    from repro_torch.kernels import moe_routing as mr
+    x, w = routing_inputs(T, D, E, torch.bfloat16, T + D + E)
+    gates_plain, mask_plain = mr.moe_routing_plain(x, w, top_k)
+    r = {"picked": "decode" if T < mr.SWITCH_T else "prefill"}
+    for design in ("decode", "prefill"):
+        gates, mask = mr.moe_routing(x, w, top_k, design=design)
+        torch.cuda.synchronize()
+        if not routing_held(gates, mask, gates_plain, mask_plain, top_k,
+                            "random"):
+            raise SystemExit(f"FAIL moe_routing {design} design at "
+                             f"{(T, D, E, top_k)}: differs from the plain "
+                             "version")
+        r[f"{design}_device_ms"] = device_ms(
+            lambda: mr.moe_routing(x, w, top_k, design=design),
+            "moe_routing_kernel")
+    nbytes = x.numel() * 2 + w.numel() * 4 + 2 * T * E * 4
+    r["bound_ms"] = attn_bound(2 * T * D * E, nbytes, "float32", rate)[0]
+    print(f"router designs (T, D, E, k)={(T, D, E, top_k)}: bit-equal, "
+          + json.dumps(r), flush=True)
+    return r
+
+
+def launch_floor_ms():
+    """The card's floor for one launch: the profiler's device time of
+    ``torch.add`` on two one-element f32 tensors."""
+    import torch
+    one = torch.zeros(1, device="cuda")
+    return device_ms(lambda: torch.add(one, one), "elementwise_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -1562,11 +1602,20 @@ def main() -> int:
                   for shape in RWKV_HOLDS}
     torch.cuda.empty_cache()
 
-    # 2f. the MoE router against its plain version, bit for bit
+    # 2f. the MoE router against its plain version, bit for bit, then its
+    # two designs on each side of the switch-over
+    from repro_torch.kernels import moe_routing as mr
+    if _build.load("moe_routing").synergai_moe_routing_switch() != \
+            mr.SWITCH_T:
+        raise SystemExit("FAIL moe_routing: the kernel's switch-over T is "
+                         "not moe_routing.SWITCH_T")
     routing_holds = {shape + (dtype_name,): hold_routing(*shape, dtype_name,
                                                          rate)
                      for dtype_name in ("bfloat16", "float32")
-                     for shape in ROUTING_HOLDS}
+                     for shape in ROUTING_HOLDS + (
+                         (mr.SWITCH_T, 4096, 16, 2, "random"),)}
+    for T in (4, 1024, mr.SWITCH_T - 1, mr.SWITCH_T, 1536, 4096):
+        router_designs(T, 4096, 16, 2, rate)
     torch.cuda.empty_cache()
 
     # 3. the scheduling path at full size
@@ -1623,7 +1672,6 @@ def main() -> int:
     attn = {"flash_attention": fa.flash_attention,
             "decode_attention": da.decode_attention}
     L = cfg.n_layers
-    from repro_torch.kernels import moe_routing as mr
     serve_launches = serve_run(
         model, params, prompts, {**attn, "moe_routing": mr.moe_routing},
         {"flash_attention": L * REQUESTS, "decode_attention": 0,
@@ -1732,7 +1780,11 @@ def main() -> int:
     del params, prompts
     torch.cuda.empty_cache()
 
-    # 7. the kernels at their paths' mean shapes, and the result
+    # 7. the launch floor, the kernels at their paths' mean shapes, and the
+    # result
+    print("launch floor: " + json.dumps(
+        {"device_ms": launch_floor_ms(),
+         "op": "torch.add of two one-element float32 tensors"}), flush=True)
     W = len(fleet)
     rows = []
     for kname, k in kernels.items():

@@ -8,14 +8,29 @@
 // masks after it, and the fori_loop greedy walk.  The lexsort between the
 // two kernels stays in PyTorch (it is XLA's in the reference too).
 //
-// tick_score_kernel.  One warp per job row, eight rows per 256-thread block,
-// as score_v2_kernel in scheduler_score.cu.  Each warp reads its row's slot
-// (slot -1 is padding, clipped to row 0 as jnp.clip does) and walks the
-// gathered pool rows twice: the first pass reduces acceptability, the two
-// urgency minima and the best doomed cost (min over feasible t_eff + wait);
-// the second recomputes t_eff and writes ranked = where(elig, cost, inf).
-// The second pass reads rows the first pass has just brought into L1/L2.
-//
+// tick_score_kernel.  One warp per job row.  The warp reads its row's slot
+// (slot -1 is padding, clipped to row 0 as jnp.clip does), gathers the
+// slot's t, pre, dec (and ene) rows once, reduces acceptability, the two
+// urgency minima and the best doomed cost (min over feasible t_eff + wait)
+// in a first pass, and writes ranked = where(elig, cost, inf) in a second
+// pass from each worker's t_eff and acceptance, kept from the first (in
+// registers, or over t and pre in shared memory; the wide design computes
+// them again).  Three designs by width:
+//   tick_score_kernel_reg<R>   Wp <= 32 R (R = 4, 8): the row in registers,
+//     R workers a lane; pen, busy_wait, escale and the admission row (its
+//     address needs only ekey) are loaded before the slot arrives, then
+//     the gathered rows all at once: two dependent loads a row.  Four rows
+//     a block, so the main path's 128 padded rows spread over 32 SMs.
+//   tick_score_kernel_smem     rows up to 227 KB: cp.async copies the rows
+//     into shared memory (16 bytes a copy where Wp % 4 == 0); the second
+//     pass reads 4 workers a lane and writes ranked in 16-byte stores.
+//   tick_score_kernel_wide     wider rows: the two passes read global
+//     memory (the second from L1/L2).
+// The first pass keeps each lane's order (w = lane, lane + 32, ... in
+// increasing w) and the xor tree of warp_nan_min: nan_min is not symmetric
+// in -0.0/0.0 or in NaN payloads.  The second pass is cell by cell, so its
+// lanes may take any workers.
+
 // greedy_place_kernel.  One warp walks the urgency order, as the
 // reference's fori_loop does.  Walker thread x of T owns workers x + T b and
 // keeps their open bits in registers (two 32-bit words; above 64 workers a
@@ -41,7 +56,10 @@
 //
 // Bound.  Bytes.  The score kernel must read the gathered t, pre, dec rows
 // (12 B/cell, 16 B with energy) and write ranked (4 B/cell), plus O(J + W)
-// vectors and the [K, W] admission masks.  The walk must read one ranked row
+// vectors and the [K, W] admission masks.  At the resident main path's 128
+// padded rows x 128 workers it is latency bound instead: two dependent
+// loads a row, the warp's reductions, the stores; its floor is the card's
+// for one launch (chip_smoke.py prints both).  The walk must read one ranked row
 // per step it takes.  It is latency bound: a serial walk's floor is steps x
 // one warp reduction (two redux.sync, ~0.1 us with the step's other work).
 //
@@ -56,10 +74,15 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kRowsPerBlock = 8;
+constexpr int kRowsPerBlock = 4;     // job rows a block of tick_score
 constexpr int kThreads = 32 * kRowsPerBlock;
+constexpr int kRegisterWorkers = 8;  // workers a lane in registers (Wp 256)
+constexpr size_t kSmemRows = 64 * 1024;  // staged rows a block, aimed at
+constexpr size_t kSmemMax = 232448;  // a block's shared memory (227 KB)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWalkers = 512;
 constexpr int kRegisterBits = 64;  // open bits a walker keeps in registers
@@ -83,101 +106,302 @@ __device__ __forceinline__ float warp_nan_min(float v) {
   return v;
 }
 
+struct TickArgs {
+  const float* pool_t;
+  const float* pool_pre;
+  const float* pool_dec;
+  const float* pool_ene;  // pool_t when energy is off (never read then)
+  const int32_t* slots;
+  const float* t_rem;
+  const float* ttft_rem;
+  const float* tpot_qos;
+  const float* dtok;
+  const int32_t* has_ttft;
+  const int32_t* has_tpot;
+  const int32_t* phase;
+  const int32_t* ekey;
+  const uint8_t* emask;
+  const float* pen;
+  const float* busy_wait;
+  const float* escale;
+  float* ranked;
+  float* urg;
+  int8_t* doom;
+  int Jp, cap, Wp, K, use_energy;
+};
+
+// a job row's scalars
+struct Row {
+  bool jvalid, ttft_gate, tpot_gate;
+  int src, ph, key;
+  float rem, tr, tq, dt;
+};
+
+__device__ __forceinline__ Row load_row(const TickArgs& a, int row) {
+  Row r;
+  const int slot = a.slots[row];
+  r.jvalid = slot >= 0;
+  r.src = min(max(slot, 0), a.cap - 1);
+  r.rem = a.t_rem[row];
+  r.ph = a.phase[row];
+  r.ttft_gate = a.has_ttft[row] != 0 && r.ph != 2;
+  r.tpot_gate = a.has_tpot[row] != 0 && r.ph != 1;
+  r.tr = a.ttft_rem[row];
+  r.tq = a.tpot_qos[row];
+  r.dt = a.dtok[row];
+  r.key = min(max(a.ekey[row], 0), a.K - 1);
+  return r;
+}
+
+// the first pass over one worker: the v2 row reductions and the best
+// doomed completion cost
+struct Folds {
+  bool any_acc;
+  float min_t;    // min over the solo estimate
+  float min_pre;  // min over the penalized prefill prefix
+  float best;     // min over feasible t_eff + busy wait
+};
+
+__device__ __forceinline__ Folds no_folds() {
+  return Folds{false, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+}
+
+// one worker's t_eff (te) and its v2 acceptance; the division only where
+// the TPOT gate is open and the rest accepts
+__device__ __forceinline__ bool accept(const Row& r, float tv, float pr,
+                                      float dc, float p, float& te,
+                                      float& ttft_est) {
+  te = __fmul_rn(r.ph == 1 ? pr : (r.ph == 2 ? dc : tv), p);
+  ttft_est = __fmul_rn(pr, p);
+  bool ok = r.rem >= te && (!r.ttft_gate || ttft_est <= r.tr);
+  if (ok && r.tpot_gate) ok = __fdiv_rn(__fmul_rn(dc, p), r.dt) <= r.tq;
+  return ok;
+}
+
+// the first pass over one worker: folds it into the row's reductions and
+// returns its acceptance (te set)
+__device__ __forceinline__ bool fold(Folds& f, const Row& r, float tv,
+                                     float pr, float dc, float p, float bw,
+                                     float& te) {
+  float ttft_est;
+  const bool ok = accept(r, tv, pr, dc, p, te, ttft_est);
+  f.any_acc |= ok;
+  f.min_t = nan_min(f.min_t, tv);
+  f.min_pre = nan_min(f.min_pre, ttft_est);
+  f.best = nan_min(f.best, isfinite(te) ? __fadd_rn(te, bw) : CUDART_INF_F);
+  return ok;
+}
+
+// the warp's reductions; lane 0 writes urg and doom.  Sets doomed and the
+// doomed rows' limit (1.5 x best).
+__device__ __forceinline__ void finish_row(const TickArgs& a, const Row& r,
+                                           int row, int lane, Folds f,
+                                           bool& doomed, float& limit) {
+  f.any_acc = __any_sync(kFull, f.any_acc);
+  f.min_t = warp_nan_min(f.min_t);
+  f.min_pre = warp_nan_min(f.min_pre);
+  f.best = warp_nan_min(f.best);
+  doomed = !f.any_acc;
+  limit = __fmul_rn(1.5f, f.best);
+  if (lane == 0) {
+    float u = __fsub_rn(r.rem, f.min_t);
+    if (r.ttft_gate) u = nan_min(u, __fsub_rn(r.tr, f.min_pre));
+    a.urg[row] = u;
+    a.doom[row] = static_cast<int8_t>(doomed);
+  }
+}
+
+// the second pass over one worker, from its t_eff and acceptance: its
+// ranked cell (the ranking cost where eligible, else inf)
+__device__ __forceinline__ float rank_cell(const Row& r, bool doomed,
+                                           float limit, bool use_energy,
+                                           float te, bool ok, float en,
+                                           float bw, float es, uint8_t em) {
+  float cost;
+  bool elig;
+  if (doomed) {
+    cost = __fadd_rn(te, bw);
+    elig = isfinite(te) && te <= limit;
+  } else {
+    cost = te;
+    elig = ok;
+  }
+  if (use_energy) cost = __fadd_rn(cost, __fmul_rn(en, es));
+  elig = elig && em != 0 && r.jvalid;
+  return elig ? cost : CUDART_INF_F;
+}
+
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-tick_score_kernel(const float* __restrict__ pool_t,
-                  const float* __restrict__ pool_pre,
-                  const float* __restrict__ pool_dec,
-                  const float* __restrict__ pool_ene,
-                  const int32_t* __restrict__ slots,
-                  const float* __restrict__ t_rem,
-                  const float* __restrict__ ttft_rem,
-                  const float* __restrict__ tpot_qos,
-                  const float* __restrict__ dtok,
-                  const int32_t* __restrict__ has_ttft,
-                  const int32_t* __restrict__ has_tpot,
-                  const int32_t* __restrict__ phase,
-                  const int32_t* __restrict__ ekey,
-                  const uint8_t* __restrict__ emask,
-                  const float* __restrict__ pen,
-                  const float* __restrict__ busy_wait,
-                  const float* __restrict__ escale,
-                  float* __restrict__ ranked, float* __restrict__ urg,
-                  int8_t* __restrict__ doom, int Jp, int cap, int Wp, int K,
-                  int use_energy) {
+tick_score_kernel_reg(const TickArgs a) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= Jp) return;  // uniform across the warp
-  const int slot = slots[row];
-  const bool jvalid = slot >= 0;
-  const int src = min(max(slot, 0), cap - 1);
-  const float rem = t_rem[row];
-  const int ph = phase[row];
-  const bool ttft_gate = has_ttft[row] != 0 && ph != 2;
-  const bool tpot_gate = has_tpot[row] != 0 && ph != 1;
-  const float tr = ttft_rem[row];
-  const float tq = tpot_qos[row];
-  const float dt = dtok[row];
-  const int key = min(max(ekey[row], 0), K - 1);
-  const size_t in_base = static_cast<size_t>(src) * Wp;
-  const float* t = pool_t + in_base;
-  const float* pre = pool_pre + in_base;
-  const float* dec = pool_dec + in_base;
-  const uint8_t* em = emask + static_cast<size_t>(key) * Wp;
-
-  // pass 1: the v2 row reductions and the best doomed completion cost
-  bool any_acc = false;
-  float min_t = CUDART_INF_F;    // min over the solo estimate
-  float min_pre = CUDART_INF_F;  // min over the penalized prefill prefix
-  float best = CUDART_INF_F;     // min over feasible t_eff + busy wait
-  for (int w = lane; w < Wp; w += 32) {
-    const float p = pen[w];
-    const float tv = t[w];
-    const float pr = pre[w];
-    const float dc = dec[w];
-    const float te = __fmul_rn(ph == 1 ? pr : (ph == 2 ? dc : tv), p);
-    const float ttft_est = __fmul_rn(pr, p);
-    const float tpot_est = __fdiv_rn(__fmul_rn(dc, p), dt);
-    any_acc |= rem >= te && (!ttft_gate || ttft_est <= tr) &&
-               (!tpot_gate || tpot_est <= tq);
-    min_t = nan_min(min_t, tv);
-    min_pre = nan_min(min_pre, ttft_est);
-    best = nan_min(best, isfinite(te) ? __fadd_rn(te, busy_wait[w])
-                                      : CUDART_INF_F);
-  }
-  any_acc = __any_sync(kFull, any_acc);
-  min_t = warp_nan_min(min_t);
-  min_pre = warp_nan_min(min_pre);
-  best = warp_nan_min(best);
-  const bool doomed = !any_acc;
-  const float limit = __fmul_rn(1.5f, best);
-
-  // pass 2: ranking cost, eligibility, energy term, masks
-  const size_t out_base = static_cast<size_t>(row) * Wp;
-  const float* ene = pool_ene + in_base;
-  for (int w = lane; w < Wp; w += 32) {
-    const float p = pen[w];
-    const float pr = pre[w];
-    const float dc = dec[w];
-    const float te = __fmul_rn(ph == 1 ? pr : (ph == 2 ? dc : t[w]), p);
-    float cost;
-    bool elig;
-    if (doomed) {
-      cost = __fadd_rn(te, busy_wait[w]);
-      elig = isfinite(te) && te <= limit;
-    } else {
-      cost = te;
-      elig = rem >= te && (!ttft_gate || __fmul_rn(pr, p) <= tr) &&
-             (!tpot_gate || __fdiv_rn(__fmul_rn(dc, p), dt) <= tq);
+  if (row >= a.Jp) return;  // uniform across the warp
+  const bool energy = a.use_energy != 0;
+  // the loads that need no slot first, then the gathered rows at once
+  float p[R], bw[R], es[R], tv[R], pr[R], dc[R], en[R];
+  uint8_t em[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int w = lane + 32 * k;
+    if (w < a.Wp) {
+      p[k] = a.pen[w];
+      bw[k] = a.busy_wait[w];
+      es[k] = energy ? a.escale[w] : 0.f;
     }
-    if (use_energy) cost = __fadd_rn(cost, __fmul_rn(ene[w], escale[w]));
-    elig = elig && em[w] != 0 && jvalid;
-    ranked[out_base + w] = elig ? cost : CUDART_INF_F;
   }
-  if (lane == 0) {
-    float u = __fsub_rn(rem, min_t);
-    if (ttft_gate) u = nan_min(u, __fsub_rn(tr, min_pre));
-    urg[row] = u;
-    doom[row] = static_cast<int8_t>(doomed);
+  const Row r = load_row(a, row);
+  const uint8_t* emr = a.emask + static_cast<size_t>(r.key) * a.Wp;
+  const size_t base = static_cast<size_t>(r.src) * a.Wp;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int w = lane + 32 * k;
+    if (w < a.Wp) {
+      em[k] = emr[w];
+      tv[k] = a.pool_t[base + w];
+      pr[k] = a.pool_pre[base + w];
+      dc[k] = a.pool_dec[base + w];
+      en[k] = energy ? a.pool_ene[base + w] : 0.f;
+    }
+  }
+  Folds f = no_folds();
+  float te[R];
+  bool ok[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (lane + 32 * k < a.Wp)
+      ok[k] = fold(f, r, tv[k], pr[k], dc[k], p[k], bw[k], te[k]);
+  bool doomed;
+  float limit;
+  finish_row(a, r, row, lane, f, doomed, limit);
+  float* out = a.ranked + static_cast<size_t>(row) * a.Wp;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int w = lane + 32 * k;
+    if (w < a.Wp)
+      out[w] = rank_cell(r, doomed, limit, energy, te[k], ok[k], en[k],
+                         bw[k], es[k], em[k]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src) : "memory");
+}
+
+// One warp a row, blockDim.x / 32 rows a block, each row's t, pre, dec
+// (and ene) staged at srow + warp * n_arr * Wp.  `vec`: Wp % 4 == 0 and
+// every row base 16-byte aligned (the emask row 4-byte aligned).
+__global__ void __launch_bounds__(kThreads)
+tick_score_kernel_smem(const TickArgs a, int vec) {
+  extern __shared__ __align__(16) float srow[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (row >= a.Jp) return;  // uniform across the warp; no block barrier
+  const bool energy = a.use_energy != 0;
+  const int Wp = a.Wp, n_arr = energy ? 4 : 3;
+  const Row r = load_row(a, row);
+  const size_t base = static_cast<size_t>(r.src) * Wp;
+  float* st = srow + static_cast<size_t>(warp) * n_arr * Wp;
+  for (int i = 0; i < n_arr; ++i) {
+    const float* src = (i == 0 ? a.pool_t : i == 1 ? a.pool_pre
+                        : i == 2 ? a.pool_dec : a.pool_ene) + base;
+    if (vec) {
+      for (int c = 4 * lane; c < Wp; c += 128)
+        cp_async16(st + i * Wp + c, src + c);
+    } else {
+      for (int w = lane; w < Wp; w += 32)
+        cp_async4(st + i * Wp + w, src + w);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const uint8_t* emr = a.emask + static_cast<size_t>(r.key) * Wp;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();  // every lane's copies are in
+  float *t = st, *pre = st + Wp;
+  const float *dec = st + 2 * Wp, *ene = st + 3 * Wp;
+
+  // the first pass leaves each worker's t_eff in t and its acceptance in
+  // pre (a lane overwrites only what it alone reads)
+  Folds f = no_folds();
+#pragma unroll 4
+  for (int w = lane; w < Wp; w += 32) {
+    float te;
+    const bool ok =
+        fold(f, r, t[w], pre[w], dec[w], a.pen[w], a.busy_wait[w], te);
+    t[w] = te;
+    pre[w] = ok ? 1.f : 0.f;
+  }
+  bool doomed;
+  float limit;
+  finish_row(a, r, row, lane, f, doomed, limit);
+  __syncwarp();  // the second pass reads other lanes' workers
+
+  float* out = a.ranked + static_cast<size_t>(row) * Wp;
+  if (vec) {
+#pragma unroll 2
+    for (int w = 4 * lane; w < Wp; w += 128) {
+      const float4 te4 = *reinterpret_cast<const float4*>(t + w);
+      const float4 ok4 = *reinterpret_cast<const float4*>(pre + w);
+      const float4 bw4 = *reinterpret_cast<const float4*>(a.busy_wait + w);
+      const uchar4 em4 = *reinterpret_cast<const uchar4*>(emr + w);
+      float4 en4 = make_float4(0.f, 0.f, 0.f, 0.f), es4 = en4;
+      if (energy) {
+        en4 = *reinterpret_cast<const float4*>(ene + w);
+        es4 = *reinterpret_cast<const float4*>(a.escale + w);
+      }
+      float4 o;
+      o.x = rank_cell(r, doomed, limit, energy, te4.x, ok4.x != 0.f, en4.x,
+                      bw4.x, es4.x, em4.x);
+      o.y = rank_cell(r, doomed, limit, energy, te4.y, ok4.y != 0.f, en4.y,
+                      bw4.y, es4.y, em4.y);
+      o.z = rank_cell(r, doomed, limit, energy, te4.z, ok4.z != 0.f, en4.z,
+                      bw4.z, es4.z, em4.z);
+      o.w = rank_cell(r, doomed, limit, energy, te4.w, ok4.w != 0.f, en4.w,
+                      bw4.w, es4.w, em4.w);
+      *reinterpret_cast<float4*>(out + w) = o;
+    }
+  } else {
+    for (int w = lane; w < Wp; w += 32)
+      out[w] = rank_cell(r, doomed, limit, energy, t[w], pre[w] != 0.f,
+                         energy ? ene[w] : 0.f, a.busy_wait[w],
+                         energy ? a.escale[w] : 0.f, emr[w]);
+  }
+}
+
+// Rows too wide for shared memory: both passes read global memory.
+__global__ void __launch_bounds__(kThreads)
+tick_score_kernel_wide(const TickArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= a.Jp) return;  // uniform across the warp
+  const bool energy = a.use_energy != 0;
+  const Row r = load_row(a, row);
+  const size_t base = static_cast<size_t>(r.src) * a.Wp;
+  const float *t = a.pool_t + base, *pre = a.pool_pre + base,
+              *dec = a.pool_dec + base, *ene = a.pool_ene + base;
+  Folds f = no_folds();
+  for (int w = lane; w < a.Wp; w += 32) {
+    float te;
+    fold(f, r, t[w], pre[w], dec[w], a.pen[w], a.busy_wait[w], te);
+  }
+  bool doomed;
+  float limit;
+  finish_row(a, r, row, lane, f, doomed, limit);
+  const uint8_t* emr = a.emask + static_cast<size_t>(r.key) * a.Wp;
+  float* out = a.ranked + static_cast<size_t>(row) * a.Wp;
+  for (int w = lane; w < a.Wp; w += 32) {
+    float te, ttft_est;
+    const bool ok = accept(r, t[w], pre[w], dec[w], a.pen[w], te, ttft_est);
+    out[w] = rank_cell(r, doomed, limit, energy, te, ok,
+                       energy ? ene[w] : 0.f, a.busy_wait[w],
+                       energy ? a.escale[w] : 0.f, emr[w]);
   }
 }
 
@@ -392,13 +616,45 @@ extern "C" int synergai_tick_score(
     cudaStream_t stream) {
   if (Jp <= 0 || cap <= 0 || Wp <= 0 || K <= 0 || (use_energy && !pool_ene))
     return static_cast<int>(cudaErrorInvalidValue);
+  const TickArgs a{pool_t, pool_pre, pool_dec, use_energy ? pool_ene : pool_t,
+                   slots, t_rem, ttft_rem, tpot_qos, dtok, has_ttft,
+                   has_tpot, phase, ekey, emask, pen, busy_wait, escale,
+                   ranked, urg, doom, Jp, cap, Wp, K, use_energy ? 1 : 0};
   const unsigned blocks =
       static_cast<unsigned>((Jp + kRowsPerBlock - 1) / kRowsPerBlock);
-  tick_score_kernel<<<blocks, kThreads, 0, stream>>>(
-      pool_t, pool_pre, pool_dec, use_energy ? pool_ene : pool_t, slots,
-      t_rem, ttft_rem, tpot_qos, dtok, has_ttft, has_tpot, phase, ekey,
-      emask, pen, busy_wait, escale, ranked, urg, doom, Jp, cap, Wp, K,
-      use_energy);
+  const size_t row_bytes = sizeof(float) * (use_energy ? 4 : 3) *
+                           static_cast<size_t>(Wp);
+  if (Wp <= 32 * 4) {
+    tick_score_kernel_reg<4><<<blocks, kThreads, 0, stream>>>(a);
+  } else if (Wp <= 32 * kRegisterWorkers) {
+    tick_score_kernel_reg<kRegisterWorkers>
+        <<<blocks, kThreads, 0, stream>>>(a);
+  } else if (row_bytes <= kSmemMax) {
+    static bool configured = false;  // opt in to > 48 KB of shared memory
+    if (!configured) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          tick_score_kernel_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kSmemMax);
+      if (rc != cudaSuccess) {
+        cudaGetLastError();  // not left behind for the next launch's check
+        return static_cast<int>(rc);
+      }
+      configured = true;
+    }
+    auto al = [](const void* q, uintptr_t n) {
+      return reinterpret_cast<uintptr_t>(q) % n == 0;
+    };
+    const bool vec = Wp % 4 == 0 && al(pool_t, 16) && al(pool_pre, 16) &&
+                     al(pool_dec, 16) && al(a.pool_ene, 16) && al(pen, 16) &&
+                     al(busy_wait, 16) && al(escale, 16) && al(ranked, 16) &&
+                     al(emask, 4);
+    const int rows = static_cast<int>(std::max<size_t>(
+        1, std::min<size_t>(kRowsPerBlock, kSmemRows / row_bytes)));
+    tick_score_kernel_smem<<<(Jp + rows - 1) / rows, 32 * rows,
+                             rows * row_bytes, stream>>>(a, vec ? 1 : 0);
+  } else {
+    tick_score_kernel_wide<<<blocks, kThreads, 0, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

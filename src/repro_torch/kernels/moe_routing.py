@@ -16,9 +16,13 @@ gates because the model's dispatch consumes it.
 
 ``moe_routing`` takes its plain PyTorch version (``moe_routing_plain``) for
 tensors on the CPU and launches ``csrc/moe_routing.cu`` for tensors on the
-card; there is no other path.  ``moe_routing.launches`` counts kernel
-launches.  Unlike the Pallas wrapper it takes any T (T = 0 returns empty
-outputs with no launch), any D, E <= 256 and 1 <= top_k <= E.
+card; there is no other path.  The kernel has two designs: for T below
+``SWITCH_T`` a cluster of 8 CTAs for every 8 tokens, the chains of each
+(token, expert) spread over the cluster (decode), and from ``SWITCH_T`` on
+32 tokens a CTA, register-blocked (prefill); ``design`` forces one of them.
+``moe_routing.launches`` counts kernel launches.  Unlike the Pallas wrapper
+it takes any T (T = 0 returns empty outputs with no launch), any D,
+E <= 256 and 1 <= top_k <= E.
 """
 
 from __future__ import annotations
@@ -33,9 +37,11 @@ from repro_torch.kernels.flash_attention import DTYPES
 MAX_EXPERTS = 256
 LANES = 32           # the kernel's warp: lane l sums d = l, l + 32, ...
 PLAIN_CHUNK = 1024   # tokens per pass of the plain version (memory)
+SWITCH_T = 1280      # the kernel's decode design below, prefill from here
+DESIGNS = {None: -1, "decode": 0, "prefill": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
 
 
 def check_routing_inputs(x, router_w, top_k):
@@ -130,12 +136,16 @@ def moe_routing_plain(x, router_w, top_k):
     return gates, mask
 
 
-def moe_routing(x, router_w, top_k):
+def moe_routing(x, router_w, top_k, design=None):
     """x: [T, D] float32 or bfloat16 (cast to f32 inside); router_w: [D, E]
     float32; contiguous, on one device.  Returns (gates [T, E] f32, zeros
     off the top-k and renormalized over it; mask [T, E] f32, 1 at the
-    top-k)."""
+    top-k).  ``design`` ("decode" or "prefill") overrides the kernel's
+    choice by T; both give the same bits."""
     T, D, E = check_routing_inputs(x, router_w, top_k)
+    if design not in DESIGNS:
+        raise ValueError(f"moe_routing: design {design!r} is none of "
+                         f"{sorted(k for k in DESIGNS if k)}")
     if x.device.type == "cpu":
         return moe_routing_plain(x, router_w, top_k)
     gates = torch.empty((T, E), dtype=torch.float32, device=x.device)
@@ -144,11 +154,11 @@ def moe_routing(x, router_w, top_k):
         return gates, mask
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.launch("moe_routing", "synergai_moe_routing", _ARGTYPES,
-                      "synergai_moe_error_string",
+        _build.launch("moe_routing", "synergai_moe_routing_design",
+                      _ARGTYPES, "synergai_moe_error_string",
                       x.data_ptr(), router_w.data_ptr(), gates.data_ptr(),
                       mask.data_ptr(), DTYPES[x.dtype], T, D, E, int(top_k),
-                      stream)
+                      DESIGNS[design], stream)
     moe_routing.launches += 1
     return gates, mask
 

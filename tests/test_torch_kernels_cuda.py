@@ -17,6 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels import moe_routing as mr
 from repro_torch.kernels import scheduler_score as ss
 
 _spec = importlib.util.spec_from_file_location(
@@ -59,8 +60,13 @@ def test_wrapper_refuses_cpu_and_card_tensors_mixed(card):
         ss.scheduler_score(*inputs)
 
 
+# (22, 506, 64): the resident main path's mean tick (rows in registers);
+# (64, 128, 4100): 8,192 padded workers, rows staged in shared memory;
+# (8, 16, 16000): 16,384, rows too wide for it, read from global memory
 @pytest.mark.parametrize("J,cap,W", [(1, 8, 1), (7, 64, 33), (301, 512, 64),
-                                     (2043, 4096, 256)])
+                                     (2043, 4096, 256), (22, 506, 64),
+                                     (1, 8, 64), (64, 128, 4100),
+                                     (8, 16, 16000)])
 @pytest.mark.parametrize("use_energy", [False, True])
 def test_tick_kernels_match_plain_versions(card, J, cap, W, use_energy):
     inputs = chip_smoke.to_card(chip_smoke.messy_tick_inputs(
@@ -349,14 +355,21 @@ def test_rwkv_model_on_the_card_matches_the_cpu(no_tf32):
 # are equal bit for bit
 
 
-@pytest.mark.parametrize("T,D,E,k,case", [
+# the decode design below mr.SWITCH_T tokens, the prefill design from it
+ROUTER_CASES = [
     (1, 64, 16, 2, "random"), (37, 100, 8, 3, "random"),
     (300, 4096, 16, 2, "random"), (129, 513, 160, 6, "random"),
     (64, 256, 16, 2, "underflow"), (64, 256, 16, 2, "tie"),
-    (16, 33, 5, 5, "random"), (17, 31, 1, 1, "random")])
+    (16, 33, 5, 5, "random"), (17, 31, 1, 1, "random"),
+    (1, 4096, 16, 2, "random"), (4, 4096, 16, 2, "random"),
+    (8, 4096, 16, 2, "random"), (mr.SWITCH_T - 1, 4096, 16, 2, "random"),
+    (mr.SWITCH_T, 4096, 16, 2, "random"), (4, 5120, 160, 6, "random"),
+    (4, 4000, 256, 8, "random"), (3, 33, 16, 2, "random")]
+
+
+@pytest.mark.parametrize("T,D,E,k,case", ROUTER_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_routing_kernel_matches_plain_version(card, T, D, E, k, case, dtype):
-    from repro_torch.kernels import moe_routing as mr
     x, w = chip_smoke.routing_inputs(T, D, E, dtype, T + D + E, case)
     before = mr.moe_routing.launches
     gates, mask = mr.moe_routing(x, w, k)
@@ -368,8 +381,32 @@ def test_routing_kernel_matches_plain_version(card, T, D, E, k, case, dtype):
                                    case)
 
 
+@pytest.mark.parametrize("T,D,E,k,case", [
+    (1, 64, 16, 2, "random"), (4, 4096, 16, 2, "random"),
+    (37, 100, 8, 3, "random"), (4, 5120, 160, 6, "random"),
+    (16, 33, 5, 5, "random"), (64, 256, 16, 2, "underflow"),
+    (64, 256, 16, 2, "tie"), (600, 4096, 16, 2, "random")])
+@pytest.mark.parametrize("design", ["decode", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_both_router_designs_match_plain_version(card, T, D, E, k, case,
+                                                 design, dtype):
+    x, w = chip_smoke.routing_inputs(T, D, E, dtype, T + D + E, case)
+    before = mr.moe_routing.launches
+    gates, mask = mr.moe_routing(x, w, k, design=design)
+    torch.cuda.synchronize()
+    assert mr.moe_routing.launches == before + 1
+    gates_plain, mask_plain = mr.moe_routing_plain(x, w, k)
+    assert chip_smoke.routing_held(gates, mask, gates_plain, mask_plain, k,
+                                   case)
+
+
+def test_router_switch_over_is_the_wrappers(card):
+    from repro_torch.kernels import _build
+    lib = _build.load("moe_routing")
+    assert lib.synergai_moe_routing_switch() == mr.SWITCH_T
+
+
 def test_routing_kernel_takes_no_token_without_a_launch(card):
-    from repro_torch.kernels import moe_routing as mr
     x, w = chip_smoke.routing_inputs(0, 64, 16, torch.bfloat16, 0)
     before = mr.moe_routing.launches
     gates, mask = mr.moe_routing(x, w, 2)
@@ -384,7 +421,6 @@ def test_moe_model_on_the_card_matches_the_cpu(no_tf32):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_routing as mr
     from repro_torch.models.registry import build_model
     from repro_torch.serving.engine import InferenceEngine
     cfg = reduced(get_config("phi3.5-moe-42b-a6.6b"))

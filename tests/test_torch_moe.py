@@ -11,6 +11,7 @@ sides, so the same bound holds there, well inside one bf16 ulp); masks are
 held equal.  Layer and model outputs are held to rtol = atol = 1e-5."""
 
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -35,6 +36,12 @@ from repro_torch.models import layers
 from repro_torch.models.convert import to_torch
 from test_torch_models import both, leaves, run_both, to_numpy
 from test_torch_serving import engines
+
+ROOT_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT_SMOKE)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 ARCH = "phi3.5-moe-42b-a6.6b"
 REL = 1e-5
@@ -178,6 +185,30 @@ def test_edge_cases():
     assert (gates == 1).all() and (mask == 1).all()
 
 
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,E,k,case", [
+    (4, 4096, 16, 2, "random"), (37, 100, 8, 3, "random"),
+    (64, 256, 16, 2, "underflow"), (64, 256, 16, 2, "tie")])
+def test_plain_routes_each_token_apart(T, D, E, k, case, dtype):
+    """``moe_routing_plain`` on a batch equals it row by row, bit for bit:
+    a token's gates and mask depend on its own row of x alone.  The
+    kernel's decode design leans on that: it sums the tokens of a cluster
+    apart, and its prefill design 32 tokens a CTA."""
+    x, w = chip_smoke.routing_inputs(T, D, E, dtype, T + D + E, case,
+                                     device="cpu")
+    gates, mask = mr.moe_routing_plain(x, w, k)
+    for t in range(T):
+        g, m = mr.moe_routing_plain(x[t:t + 1].contiguous(), w, k)
+        assert torch.equal(bits(g), bits(gates[t:t + 1]))
+        assert torch.equal(bits(m), bits(mask[t:t + 1]))
+    if case == "underflow":
+        assert ((gates > 0).sum(-1) < k).all()
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     x, w = torch.zeros(4, 8), torch.zeros(8, 4)
     with pytest.raises(ValueError, match="top_k 5"):
@@ -196,6 +227,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         mr.moe_routing(torch.zeros(8, 4).t(), w, 2)
     with pytest.raises(ValueError, match="2-D"):
         mr.moe_routing(torch.zeros(2, 4, 8), w, 2)
+    with pytest.raises(ValueError, match="design 'fast'"):
+        mr.moe_routing(x, w, 2, design="fast")
 
 
 # ---------------------------------------------------------------------------

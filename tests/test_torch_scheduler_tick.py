@@ -117,6 +117,39 @@ def test_tick_plain_matches_numpy_transcription(J, cap, W, seed,
         assert_exact(got.numpy(), exp)
 
 
+ROW_ARGS = range(4, 13)   # slots .. ekey: tick_score's per-row inputs
+
+
+@pytest.mark.parametrize("split", ["rows", "blocks", "scattered"])
+def test_tick_plain_splits_by_rows(split):
+    """``tick_score_plain`` on the padded queue equals it on any split of
+    the rows, exactly (bit for bit: NaN payloads and -0.0 kept): a row's
+    ranked row, urgency and doom depend on its own slot and scalars alone.
+    The kernel's designs lean on that: one warp a row, a few rows a block.
+    At the main path's mean shape (22, 506, 64), energy on."""
+    inputs = _torch(chip_smoke.messy_tick_inputs(22, 506, 64, 11,
+                                                 deep=True))
+    score_in = inputs[:17]
+    whole = ss.tick_score_plain(*score_in, use_energy=True)
+    Jp = score_in[4].shape[0]
+    if split == "rows":
+        parts = [[j] for j in range(Jp)]
+    elif split == "blocks":
+        parts = [range(0, 5), range(5, 22), range(22, Jp)]
+    else:
+        parts = np.array_split(np.random.default_rng(0).permutation(Jp), 5)
+    for part in parts:
+        idx = torch.as_tensor(np.asarray(part, np.int64))
+        args = [a[idx] if i in ROW_ARGS else a
+                for i, a in enumerate(score_in)]
+        got = ss.tick_score_plain(*args, use_energy=True)
+        for g, w in zip(got, whole):
+            g, w = g.numpy(), w[idx].numpy()
+            if g.dtype == np.float32:
+                g, w = g.view(np.int32), w.view(np.int32)
+            np.testing.assert_array_equal(g, w)
+
+
 def test_messy_inputs_cover_the_hazards():
     """The input sets hold every hazard of the tick's contract: padding rows,
     NaN, +-inf and -0.0 urgencies, NaN costs, inf rows, f32 ties in
