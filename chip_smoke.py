@@ -29,16 +29,21 @@ Phases, in order; any failure exits non-zero:
        profiler showing the tensor-core kernel for bf16 and the FMA kernel
        for f32, and
    (d) ``decode_attention`` on the serving buffer [4, 1064, 32, 8, 128] at
-       k_valid 1, 1025 and 1064, a ragged hd-80 buffer and an hd-256 MQA
-       buffer; both in f32 (within 2e-5, TF32 off) and bf16 (within one
-       bf16 ulp, 2**-7 relative), each beside SDPA as the library yardstick;
+       k_valid 1, 1024 (the end of a split of ``plan_splits``), 1025 and
+       1064, a ragged hd-80 buffer, an hd-256 MQA buffer and G = 5
+       (25 query over 5 kv heads); both in f32 (within 2e-5, TF32 off) and
+       bf16 (within one bf16 ulp, 2**-7 relative), each beside SDPA as the
+       library yardstick; three calls in a row bit-identical (the merge of
+       the splits runs in split order) with the ticket counters back at 0,
+       and the profiler showing one ``decode_attention_*`` kernel a call;
    (e) ``rwkv_scan`` at [B, S, H, hd] = [4, 1024, 32, 64] from a zero state
        (the RWKV serving prefill), [4, 1, 32, 64] from a random state (a
-       decode step), [2, 1000, 8, 64] from a random state (a ragged length)
-       and an hd-16 shape, in f32 inputs (y and the end state within
-       1e-5 * max |plain|; bit equality is reported, and expected) and bf16
-       inputs (y within one bf16 ulp more), the update in place
-       (``state_out=state``) equal to the one out of place;
+       decode step), [2, 1000, 8, 64] and [1, 515, 2, 64] from a random
+       state (ragged lengths, few heads: four CTAs a head) and an hd-16
+       shape, in f32 and bf16 inputs: y and the end state bit-equal to
+       ``rwkv_scan_plain`` (the serving path's parity rests on it), the
+       update in place (``state_out=state``) equal to the one out of place;
+       ``rwkv_scan.LANES`` and ``COLS`` are the kernel's own;
        no PyTorch call computes the recurrence, so no library yardstick;
    (f) ``moe_routing`` at [T, D, E, k] = [4096, 4096, 16, 2] (the phi3.5
        prefill), [4, 4096, 16, 2] (a decode step), [1, 4096, 16, 2],
@@ -125,10 +130,13 @@ TIMES = ("ms", "device_ms", "plain_ms", "bound_ms")
 FLASH_HOLDS = ((4, 1024, 32, 8, 128, None), (4, 1000, 32, 8, 80, 256),
                (2, 2048, 8, 1, 256, None))
 # (B, S, H, K, hd, k_valid): the serving buffer (prompt 1,024 + 32 + 8)
-# cold, just after the prompt and full; a ragged hd-80 buffer; hd-256 MQA
+# cold, just after the prompt and full; a ragged hd-80 buffer; hd-256 MQA;
+# G = 5; the serving buffer with k_valid at the end of a split (1,024)
 DECODE_HOLDS = ((4, 1064, 32, 8, 128, 1), (4, 1064, 32, 8, 128, 1025),
                 (4, 1064, 32, 8, 128, 1064), (4, 1000, 32, 8, 80, 777),
-                (2, 2056, 8, 1, 256, 2050))
+                (2, 2056, 8, 1, 256, 2050), (2, 1000, 25, 5, 64, 999),
+                (4, 1064, 32, 8, 128, 1024))
+DECODE_REPEATS = 3        # calls that must agree bit for bit
 # (rtol, atol) of a kernel against its plain version: the same f32 math
 # summed in another order; in bf16 both round their f32 result once
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
@@ -138,12 +146,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SERVE_ARCH, REQUESTS, SERVE_BATCH, PROMPT, GEN = "qwen3-4b", 4, 4, 1024, 32
 RWKV_ARCH = "rwkv6-1.6b"
 # the WKV scan (B, S, H, hd, start state): the RWKV serving prefill (zeros),
-# one decode step, a ragged length, the tests' reduced head dim
+# one decode step, a ragged length, the tests' reduced head dim, two heads
+# (the kernel's column split: four CTAs a head)
 RWKV_HOLDS = ((4, 1024, 32, 64, False), (4, 1, 32, 64, True),
-              (2, 1000, 8, 64, True), (2, 333, 8, 16, True))
-# the scan against its plain version: max |delta| <= RWKV_REL * max |plain|
-# for y and the end state, bf16 y one bf16 ulp (2**-7 relative) more; the
-# two do the same roundings in the same order, so "exact" is expected too
+              (2, 1000, 8, 64, True), (2, 333, 8, 16, True),
+              (1, 515, 2, 64, True))
+# the scan against its plain version: bit-equal (the same roundings in the
+# same order); max |delta| <= RWKV_REL * max |plain| is reported beside it
 RWKV_REL = 1e-5
 # parity: max |logit delta| / max |plain logit| per row and step
 LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -459,6 +468,30 @@ def device_ms(fn, kernel_name, reps=REPS, tries=3, names=None):
             return sum(evt.device_time_total / evt.count / 1e3
                        for evt in found)
     return None
+
+
+def kernels_per_call(fn, reps=20):
+    """What ``reps`` calls of ``fn`` ran on the card, from the profiler's
+    trace, per call: ({kernel name: launches the device side recorded},
+    calls to the CUDA runtime that start device work: cudaLaunch*,
+    cudaMemset*, cudaMemcpy*).  The device side now and then misses a
+    short kernel near the start of a trace; the runtime side sees every
+    call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device, api = {}, 0
+    for evt in prof.key_averages():
+        if evt.count and getattr(evt, "device_time_total", 0):
+            device[evt.key] = evt.count / reps
+        elif evt.key.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy")):
+            api += evt.count
+    return device, api / reps
 
 
 def sass_counts(lib, opcode):
@@ -943,12 +976,33 @@ def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
             v[:, :kv_end].transpose(1, 2), enable_gqa=True).transpose(1, 2)
 
     esize = q.element_size()
-    return hold_attention(
-        f"decode_attention{label} (B, S, H, K, hd, k_valid)="
-        f"{(B, S, H, K, hd, k_valid)} {dtype_name}", "decode_attention_",
-        da.decode_attention, da.decode_attention_plain, sdpa,
-        (q, k, v, k_valid), dtype_name, 4 * B * H * kv_end * hd,
+    name = (f"decode_attention{label} (B, S, H, K, hd, k_valid)="
+            f"{(B, S, H, K, hd, k_valid)} {dtype_name}")
+    r = hold_attention(
+        name, "decode_attention_", da.decode_attention,
+        da.decode_attention_plain, sdpa, (q, k, v, k_valid), dtype_name,
+        4 * B * H * kv_end * hd,
         esize * (2 * B * kv_end * K * hd + 2 * B * H * hd), rate)
+    # one launch a call, the same bits on every call, the tickets back at 0
+    outs = [da.decode_attention(q, k, v, k_valid)
+            for _ in range(DECODE_REPEATS)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise SystemExit(f"FAIL {name}: {DECODE_REPEATS} calls differ")
+    if bool(da._counter_buffers[q.device].any()):
+        raise SystemExit(f"FAIL {name}: the ticket counters are not 0")
+    device, api = kernels_per_call(
+        lambda: da.decode_attention(q, k, v, k_valid))
+    if (api != 1 or len(device) != 1
+            or "decode_attention_" not in next(iter(device))):
+        raise SystemExit(f"FAIL {name}: {api} launches a call, kernels "
+                         f"{device}")
+    r["launches_per_call"] = api
+    r["n_split"] = da.plan_splits(B, K, H // K, kv_end, hd)
+    r["split_ends"] = [e for _, e in da.split_keys(r["n_split"], kv_end)]
+    print(f"hold {name}: {DECODE_REPEATS} calls bit-identical, one kernel a "
+          f"call, {r['n_split']} splits", flush=True)
+    return r
 
 
 def rwkv_inputs(B, S, H, hd, dtype, seed, with_state):
@@ -1014,13 +1068,13 @@ def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
         raise SystemExit(f"FAIL {label}: the update in place differs from "
                          "the one out of place")
     err, ok = rwkv_held(y, s, y_plain, s_plain)
-    if not ok:
-        raise SystemExit(f"FAIL {label}: outside the tolerance (max abs err "
-                         f"{err})")
+    if not (torch.equal(y, y_plain) and torch.equal(s, s_plain)):
+        raise SystemExit(f"FAIL {label}: not bit-equal to rwkv_scan_plain "
+                         f"(max abs err {err}, within RWKV_REL: {ok})")
     bound_ms, bound_by = rwkv_bound(B, S, H, hd, y.element_size(),
                                     with_state, dtype_name, rate)
-    r = {"max_abs_err": err, "exact": torch.equal(y, y_plain)
-         and torch.equal(s, s_plain),
+    r = {"max_abs_err": err, "exact": True,
+         "column_split": rs.column_split(B, H, hd),
          "max_abs_y_plain": float(y_plain.float().abs().max()),
          "rel": RWKV_REL,
          "ms": time_ms(lambda: rs.rwkv_scan(*ins, state)),
@@ -1029,7 +1083,7 @@ def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
          "plain_ms": time_ms(lambda: rs.rwkv_scan_plain(*ins, state), reps=3,
                              batch=1),
          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"hold {label}: within tolerance, in place = out of place, "
+    print(f"hold {label}: bit-equal, in place = out of place, "
           + json.dumps(r), flush=True)
     return r
 
@@ -1584,6 +1638,17 @@ def main() -> int:
         print(f"hold scheduler_tick J={J} cap={cap} W={W}: exact", flush=True)
 
     # 2c-2d. the attention kernels against their plain versions
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import rwkv_scan as rs
+    if _build.load("decode_attention").synergai_decode_tile() != da.TILE:
+        raise SystemExit("FAIL decode_attention: the kernel's tile is not "
+                         "decode_attention.TILE")
+    _, _, nh, nkv, dh, edge = DECODE_HOLDS[-1]
+    ends = [e for _, e in da.split_keys(
+        da.plan_splits(SERVE_BATCH, nkv, nh // nkv, edge, dh), edge)]
+    if edge % da.TILE or any(e % da.TILE for e in ends):
+        raise SystemExit(f"FAIL decode_attention: k_valid {edge} does not "
+                         f"end on a split boundary ({ends})")
     attn_worst = {"flash_attention": 0.0, "decode_attention": 0.0}
     for dtype_name in ("bfloat16", "float32"):
         for shape in FLASH_HOLDS:
@@ -1596,7 +1661,12 @@ def main() -> int:
                 attn_worst["decode_attention"], r["max_abs_err"])
         torch.cuda.empty_cache()
 
-    # 2e. the WKV scan against its plain version
+    # 2e. the WKV scan against its plain version, bit for bit
+    lib = _build.load("rwkv_scan")
+    if (lib.synergai_rwkv_lanes(), lib.synergai_rwkv_cols()) != (rs.LANES,
+                                                                 rs.COLS):
+        raise SystemExit("FAIL rwkv_scan: the kernel's lanes and columns "
+                         "are not rwkv_scan.LANES and COLS")
     rwkv_holds = {shape + (dtype_name,): hold_rwkv(*shape, dtype_name, rate)
                   for dtype_name in ("float32", "bfloat16")
                   for shape in RWKV_HOLDS}
@@ -1651,9 +1721,7 @@ def main() -> int:
     # 4-6. the serving path at full width, its parity, a decode-step profile
     from repro_torch._tree import tree_leaves, tree_map
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.models.registry import build_model
     cfg = get_config(SERVE_ARCH)
     model = build_model(cfg)

@@ -10,8 +10,10 @@ as [hd_k, hd_v] in f32,
 
 ``rwkv_scan`` takes its plain PyTorch version (``rwkv_scan_plain``, a time
 loop with the same f32 math) for tensors on the CPU and launches
-``csrc/rwkv_scan.cu`` for tensors on the card; there is no other path.
-``rwkv_scan.launches`` counts kernel launches.  Unlike the Pallas wrapper it
+``csrc/rwkv_scan.cu`` for tensors on the card; there is no other path.  The
+kernel spreads each value column's state over ``LANES`` lanes and each
+(batch, head) over ``column_split`` CTAs.  ``rwkv_scan.launches`` counts
+kernel launches.  Unlike the Pallas wrapper it
 starts from a given state, returns the end state, and takes any S: S = 1 is
 a decode step, S = 0 returns the state with no launch.
 """
@@ -26,9 +28,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES
 
 HEAD_DIMS = (16, 32, 64)       # powers of two: the pairwise sum halves hd
+LANES = 4            # the kernel's lanes a column group (its kLanes)
+COLS = 2             # the value columns a lane holds (its kCols)
+TARGET_CTAS = 128    # about one CTA on each of the H100's 132 SMs
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]
+
+
+def column_split(B, H, hd):
+    """CTAs per (batch, head) of the kernel: the least power of two that
+    gives ``TARGET_CTAS`` CTAs, each CTA at least a warp (32 // LANES
+    groups of COLS value columns)."""
+    split, min_cols = 1, 32 // LANES * COLS
+    while B * H * split < TARGET_CTAS and hd // (2 * split) >= min_cols:
+        split *= 2
+    return split
 
 
 def check_scan_inputs(r, k, v, w, u, state, state_out):
@@ -110,6 +125,9 @@ def rwkv_scan(r, k, v, w, u, state=None, *, state_out=None):
         s = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
                          device=r.device) if state is None else state.clone())
         return torch.empty_like(r), _end_state(s, state_out)
+    if any(x.data_ptr() % 4 for x in (r, k, v, w)):
+        raise ValueError("rwkv_scan: the kernel needs 4-byte aligned r, k, "
+                         "v, w")
     uf = u.to(torch.float32).contiguous()
     out = (state_out if state_out is not None else
            torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device))
@@ -122,7 +140,8 @@ def rwkv_scan(r, k, v, w, u, state=None, *, state_out=None):
                       uf.data_ptr(),
                       state.data_ptr() if state is not None else None,
                       out.data_ptr(), y.data_ptr(), DTYPES[r.dtype], B, S, H,
-                      hd, int(state is not None), stream)
+                      hd, column_split(B, H, hd), int(state is not None),
+                      stream)
     rwkv_scan.launches += 1
     return y, out
 

@@ -125,6 +125,29 @@ def test_decode_plain_ragged_matches_ref(B, S, H, K, hd, k_valid, dtype):
     close(out, ref.decode_attention_ref(q, k, v, k_valid), tol)
 
 
+@pytest.mark.parametrize("B,K,G,kv_end,hd", [
+    (4, 8, 4, 1040, 128),     # the serving path's mean step
+    (4, 8, 4, 1, 128), (4, 8, 4, 1024, 128), (4, 8, 4, 1064, 128),
+    (2, 1, 8, 2050, 256),     # MQA: the staged partials cap the split
+    (2, 5, 5, 999, 64), (1, 2, 4, 8192, 128), (1, 1, 64, 5000, 64),
+    (4, 8, 4, 777, 80), (1, 1, 1, 31, 16), (64, 8, 4, 4000, 128)])
+def test_plan_splits_cover_the_cache_in_whole_tiles(B, K, G, kv_end, hd):
+    n = da.plan_splits(B, K, G, kv_end, hd)
+    keys = da.split_keys(n, kv_end)
+    assert len(keys) == n and keys[0][0] == 0 and keys[-1][1] == kv_end
+    assert all(a < b for a, b in keys)                   # no empty split
+    assert all(keys[i][1] == keys[i + 1][0] for i in range(n - 1))
+    assert all(a % da.TILE == 0 for a, _ in keys)        # whole tiles
+    # two CTAs an SM, less than a row of splits short, where the keys (and
+    # the staged partials) allow; never more, unless one split is more
+    rows = B * K * da.row_blocks(G)
+    staged = da.MERGE_BYTES // (4 * da.rows_per_cta(G) * (hd + 4))
+    assert (2 * 132 - rows < n * rows <= 2 * 132
+            or n == min(-(-kv_end // da.TILE), staged) or n == 1)
+    assert n * rows <= 2 * 132 or n == 1
+    assert n * da.rows_per_cta(G) * (hd + 4) * 4 <= da.MERGE_BYTES
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 4, 48)
     with pytest.raises(ValueError, match="head_dim 48"):

@@ -234,6 +234,43 @@ def test_decode_kernel_matches_plain_version(no_tf32, B, S, H, K, hd,
     torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
 
 
+# the one-launch design: the split plan's corners (G = 5 and G = 1, G = 64
+# in 8 row blocks, a long cache in many splits, one split, a k_valid on a
+# split boundary and past S, hd-256 MQA); three calls in a row must agree
+# bit for bit (the merge runs in split order whichever CTA ends last) and
+# leave the ticket counters at zero
+@pytest.mark.parametrize("B,S,H,K,hd,k_valid", [
+    (2, 1000, 25, 5, 64, 999), (2, 300, 4, 4, 128, 300),
+    (1, 8192, 8, 2, 128, 8192), (1, 8192, 64, 1, 64, 5000),
+    (4, 1064, 32, 8, 128, 1), (4, 1064, 32, 8, 128, 1024),
+    (2, 100, 4, 2, 256, 500), (2, 2056, 8, 1, 256, 2050)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_one_deterministic_launch(no_tf32, B, S, H, K, hd,
+                                                   k_valid, dtype):
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype, S + H)
+    kv_end = min(k_valid, S)
+    n_split = da.plan_splits(B, K, H // K, kv_end, hd)
+    if k_valid == 1024:
+        assert da.split_keys(n_split, kv_end)[-1][1] == k_valid
+        assert k_valid % da.TILE == 0
+    before = da.decode_attention.launches
+    outs = [da.decode_attention(q, k, v, k_valid) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert not bool(da._counter_buffers[q.device].any())
+    want = da.decode_attention_plain(q, k, v, k_valid)
+    torch.testing.assert_close(outs[0].float(), want.float(),
+                               **ATTN_TOL[dtype])
+
+
+def test_decode_tile_is_the_wrappers(card):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    assert _build.load("decode_attention").synergai_decode_tile() == da.TILE
+
+
 def test_attention_wrappers_refuse_mixed_devices(card):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -308,6 +345,34 @@ def test_rwkv_kernel_matches_plain_version(card, B, S, H, hd, with_state,
     y2, s2 = rs.rwkv_scan(*ins, inplace, state_out=inplace)
     torch.cuda.synchronize()
     assert s2 is inplace and torch.equal(inplace, s) and torch.equal(y2, y)
+
+
+# every column-split class (CTAs per (b, h)) at hd 16, 32 and 64, bit-equal
+@pytest.mark.parametrize("B,S,H,hd,split", [
+    (8, 50, 16, 16, 1), (2, 40, 64, 32, 1), (2, 77, 4, 16, 1),
+    (1, 60, 64, 32, 2), (1, 100, 64, 64, 2), (1, 33, 8, 32, 2),
+    (1, 90, 32, 64, 4), (1, 129, 2, 64, 4), (3, 17, 5, 64, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_kernel_is_bit_equal_at_every_column_split(card, B, S, H, hd,
+                                                        split, dtype):
+    from repro_torch.kernels import rwkv_scan as rs
+    assert rs.column_split(B, H, hd) == split
+    ins, state = chip_smoke.rwkv_inputs(B, S, H, hd, dtype, S + H, True)
+    y, s = rs.rwkv_scan(*ins, state)
+    y_plain, s_plain = rs.rwkv_scan_plain(*ins, state)
+    inplace = state.clone()
+    y2, _ = rs.rwkv_scan(*ins, inplace, state_out=inplace)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_plain) and torch.equal(s, s_plain)
+    assert torch.equal(y2, y) and torch.equal(inplace, s)
+
+
+def test_rwkv_lanes_are_the_wrappers(card):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv_scan as rs
+    lib = _build.load("rwkv_scan")
+    assert (lib.synergai_rwkv_lanes(), lib.synergai_rwkv_cols()) == (
+        rs.LANES, rs.COLS)
 
 
 def test_rwkv_kernel_takes_zero_steps_without_a_launch(card):

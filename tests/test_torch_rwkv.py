@@ -90,6 +90,60 @@ def test_plain_matches_pallas_interpret_and_ref(B, S, H, hd, chunk):
     held(s, numpy_scan(*arrays)[1])
 
 
+def lane_scan(r, k, v, w, u):
+    """The CUDA kernel's arithmetic, in torch on the CPU: the plain step's
+    terms, then the sum over the key index as the kernel takes it.  Lane t
+    of a column group holds the rows i = t + LANES * m; it runs the plain
+    tree's levels at distances hd/2 .. LANES on its own rows (m with
+    m + M/2), then the lanes add at xor distances LANES/2 .. 1, each lane
+    its own sum first."""
+    L = rs.LANES
+    rf, kf, vf, wf = (torch.from_numpy(np.array(a)) for a in (r, k, v, w))
+    B, S, H, hd = rf.shape
+    uf = torch.from_numpy(np.array(u))[None, :, :, None]
+    s = torch.zeros((B, H, hd, hd))
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        p = rf[:, t, :, :, None] * (s + uf * kv)      # [B, H, hd_k, hd_v]
+        s = wf[:, t, :, :, None] * s + kv
+        q = p.reshape(B, H, hd // L, L, hd).transpose(2, 3)  # [.., t, m, j]
+        while q.shape[3] > 1:                          # a lane's own rows
+            half = q.shape[3] // 2
+            q = q[:, :, :, :half] + q[:, :, :, half:]
+        x = q[:, :, :, 0]                              # [B, H, lane, hd_v]
+        off = L // 2
+        while off:                                     # across the lanes
+            x = x + x[:, :, [t ^ off for t in range(L)]]
+            off //= 2
+        ys.append(x[:, :, 0])
+    return torch.stack(ys, dim=1), s
+
+
+@pytest.mark.parametrize("B,S,H,hd,chunk", [
+    (1, 64, 2, 16, 16), (2, 128, 4, 64, 64), (1, 96, 2, 32, 32)])
+def test_kernel_reduction_order_is_the_plain_versions(B, S, H, hd, chunk):
+    """The lanes' split of the pairwise tree (``lane_scan``) reorders no sum
+    of the plain version: y and the end state are equal bit for bit, on the
+    inputs held to the Pallas kernel above."""
+    arrays, _ = scan_inputs(S + hd, B, S, H, hd)
+    y, s = lane_scan(*arrays)
+    y_plain, s_plain = port_scan(arrays)
+    assert torch.equal(y, y_plain) and torch.equal(s, s_plain)
+    held(y, pallas_rwkv_scan(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                             interpret=True))
+
+
+@pytest.mark.parametrize("B,H,hd", [(4, 32, 64), (2, 8, 64), (1, 1, 64),
+                                    (2, 8, 16), (1, 4, 32), (64, 32, 64)])
+def test_column_split_fills_the_card_with_whole_warps(B, H, hd):
+    split = rs.column_split(B, H, hd)
+    threads = hd // split // rs.COLS * rs.LANES
+    assert split & (split - 1) == 0 and threads % 32 == 0
+    # as many CTAs as the target asks, or as many as whole warps allow
+    assert B * H * split >= rs.TARGET_CTAS or threads == 32
+
+
 @pytest.mark.parametrize("B,S,H,hd", [(2, 1, 4, 16), (1, 37, 2, 64),
                                       (3, 100, 2, 32)])
 def test_plain_ragged_lengths_match_ref(B, S, H, hd):
