@@ -63,8 +63,28 @@ Phases, in order; any failure exits non-zero:
    kernel launches (the counts set to 0 just before it), must give the same
    ``JobResult``s as the same run on the CPU, and is set beside the default
    numpy ``SynergAI()``; the resident runs also print their per-tick
-   transfer counters, and one more job-mode resident run over the first
-   3,000 jobs times the stages of a device tick;
+   transfer counters (held equal to the CPU run's, ``profile_reclaims``
+   among them) and their edge energy (held equal too); (d) prints its
+   ``normalized_edge_energy`` and ``offload_fraction``, card against numpy;
+   one more job-mode resident run over the first 3,000 jobs times the
+   stages of a device tick;
+3f. drift: the 10,000-job ``drift`` scenario on the same 64 pools over
+   three regions, 20 edge pools slowed ~5x from a third of the way in
+   (``synth_degradations``), in five runs: resident ``SynergAI`` (i) stale,
+   (ii) with an ``OnlineRecharacterizer`` and (iii) with the oracle (the
+   true factors at t = 0), (iv) v2 online and (v) resident
+   ``HierarchicalSynergAI`` online (one re-characterizer for all regions).
+   Each run is held as in 3, with a fresh re-characterizer for each of its
+   card, CPU and numpy runs; an online run must refresh at least once and
+   reclaim rows on the card, and its refreshes and final overlay scales
+   must equal the CPU run's bit for bit; online must violate less than
+   stale.  One ``drift`` line a run;
+3g. the paper's comparison policies, which run on the host: SLO-MAEL and
+   the five baselines (RR, SRR, LRU, MRU, BE) on the jobs of (c), beside
+   (c)'s SynergAI; then the paper's experiments (``make_experiment`` DL-FL,
+   DL-FH, DH-FH, seeds 1-5) with all seven policies, SynergAI on the
+   resident backend (held to its CPU run, its launches to its ticks); both
+   print the ratios of ``examples/scheduler_comparison.py``;
 4. the serving path: qwen3-4b at full width in bf16 (random weights from a
    seed) through ``build_model`` and ``InferenceEngine``, 4 requests of
    batch 4 x prompt 1,024 x 32 generated tokens, each placed by
@@ -110,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -121,6 +142,14 @@ TICK_SHAPES = ((22, 506, 64), (2043, 4096, 256), (10000, 16384, 64),
                (16384, 32768, 2048))
 N_JOBS = 10_000
 POOLS = (8, 28, 28)
+# the drift cell: a third of the edge pools slowed ~5x from a third of the
+# way in (synth_degradations), on the 64-pool fleet over three regions
+DRIFT = dict(factor=5.0, fraction=0.35, prefix="edge", seed=0)
+# the paper's experiments (make_experiment, 24 jobs each) and seeds
+EXPERIMENTS = (("DL-FL", "DL", "FL"), ("DL-FH", "DL", "FH"),
+               ("DH-FH", "DH", "FH"))
+EXPERIMENT_SEEDS = (1, 2, 3, 4, 5)
+BASELINES = ("RR", "SRR", "LRU", "MRU", "BE")
 REPS = 25                 # timed samples per kernel (median reported)
 BATCH = 10                # launches per timed sample
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms")
@@ -470,27 +499,33 @@ def device_ms(fn, kernel_name, reps=REPS, tries=3, names=None):
     return None
 
 
-def kernels_per_call(fn, reps=20):
+def kernels_per_call(fn, reps=20, tries=3):
     """What ``reps`` calls of ``fn`` ran on the card, from the profiler's
     trace, per call: ({kernel name: launches the device side recorded},
     calls to the CUDA runtime that start device work: cudaLaunch*,
     cudaMemset*, cudaMemcpy*).  The device side now and then misses a
-    short kernel near the start of a trace; the runtime side sees every
-    call."""
+    short kernel near the start of a trace, and now and then records no
+    device work at all while the runtime side shows the launches: such a
+    trace is taken again, up to ``tries`` times.  The runtime side sees
+    every call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device, api = {}, 0
-    for evt in prof.key_averages():
-        if evt.count and getattr(evt, "device_time_total", 0):
-            device[evt.key] = evt.count / reps
-        elif evt.key.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy")):
-            api += evt.count
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device, api = {}, 0
+        for evt in prof.key_averages():
+            if evt.count and getattr(evt, "device_time_total", 0):
+                device[evt.key] = evt.count / reps
+            elif evt.key.startswith(("cudaLaunch", "cudaMemset",
+                                     "cudaMemcpy")):
+                api += evt.count
+        if device or not api:
+            break
     return device, api / reps
 
 
@@ -621,9 +656,9 @@ def canon(results):
     return out
 
 
-def drive(cd, jobs, fleet, serving, policy):
+def drive(cd, jobs, fleet, serving, policy, degradations=()):
     """One simulator run of ``policy``; returns (results, per-call
-    schedule seconds, wall seconds)."""
+    schedule seconds, wall seconds, the run's cluster)."""
     from repro_torch.core.simulator import Simulator
     inner = policy.schedule
     ticks = []
@@ -635,34 +670,96 @@ def drive(cd, jobs, fleet, serving, policy):
         return out
 
     policy.schedule = schedule
-    sim = Simulator(cd, policy, fleet=fleet, seed=0, serving=serving)
+    sim = Simulator(cd, policy, fleet=fleet, seed=0, serving=serving,
+                    degradations=degradations)
     t0 = time.perf_counter()
     results = sim.run(jobs)
-    return results, ticks, time.perf_counter() - t0
+    return results, ticks, time.perf_counter() - t0, sim.cluster
 
 
-def synergai(score_fn):
+def synergai(score_fn, rc=None):
     from repro_torch.core.scheduler import SynergAI
-    return SynergAI(score_fn=score_fn)
+    return SynergAI(score_fn=score_fn, recharacterizer=rc)
 
 
-def main_path_run(label, cd, fleet, serving, streaming, v2, kernel):
+def online_rc():
+    from repro_torch.core.recharacterize import OnlineRecharacterizer
+    return OnlineRecharacterizer()
+
+
+def oracle_rc(cd, fleet, degradations):
+    """The true factors installed at t = 0, detection off
+    (``benchmarks/scheduler_experiments.py:697-698``): a fresh one a call."""
+    def make():
+        from repro_torch.core.recharacterize import OnlineRecharacterizer
+        from repro_torch.core.simulator import Cluster
+        rc = OnlineRecharacterizer(detect=False)
+        rc.seed(Cluster(cd, list(fleet)),
+                worker_factors={d.worker: d.factor for d in degradations})
+        return rc
+    return make
+
+
+def scales(cd, rc):
+    """The overlay's final scales, as exact text (``repr`` round-trips every
+    float bit for bit)."""
+    from repro_torch.core.estimator import profile_overlay
+    return json.dumps(profile_overlay(cd, rc.profile).scale, sort_keys=True)
+
+
+def hold_loop(label, cd, rcs, card_caches, online):
+    """The re-characterizer of the card run against the CPU run's: the same
+    refreshes and bit-equal overlay scales; an online run must have
+    refreshed and reclaimed rows on the card.  ``rcs`` maps run -> its own
+    re-characterizer (``None`` for a stale run)."""
+    if rcs["card"] is None:
+        return {}
+    card, cpu = rcs["card"], rcs["cpu"]
+    if len({id(rc) for rc in rcs.values()}) != len(rcs):
+        raise SystemExit(f"FAIL {label}: runs share a re-characterizer")
+    if card.refreshes != cpu.refreshes:
+        raise SystemExit(f"FAIL {label}: {card.refreshes} refreshes on the "
+                         f"card, {cpu.refreshes} in the device='cpu' run")
+    if scales(cd, card) != scales(cd, cpu):
+        raise SystemExit(f"FAIL {label}: overlay scales differ from the "
+                         "device='cpu' run")
+    reclaims = sum(c.profile_reclaims for c in card_caches)
+    if online and (card.refreshes < 1 or reclaims <= 0):
+        raise SystemExit(f"FAIL {label}: {card.refreshes} refreshes and "
+                         f"{reclaims} profile reclaims: the refresh path did "
+                         "not run")
+    return {"refreshes": {"card": card.refreshes, "cpu": cpu.refreshes,
+                          "numpy": rcs["numpy"].refreshes},
+            "last_reason": card.last_reason,
+            "overlay_scales_equal_to_cpu_run": True,
+            "overlay_engines": len(json.loads(scales(cd, card)))}
+
+
+def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
+                  degradations=(), make_rc=None, tag="main_path"):
+    """A scoring-kernel path (v1, or v2 with ``v2``) on the card, on the CPU
+    and with the numpy default, each with a fresh re-characterizer from
+    ``make_rc`` if given.  Returns (launches, mean rows a scoring tick,
+    the card's summary)."""
     from repro_torch.core.metrics import summarize
     from repro_torch.core.scoring import make_torch_score_fn
-    from repro_torch.core.workload import scenario
-    jobs = scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0,
-                    serving=serving, streaming=streaming)
-    res_np, ticks_np, wall_np = drive(cd, jobs, fleet, serving,
-                                      synergai(None))
+    from repro_torch.launch.schedule import caches_of
+    rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
+                                                       "cpu")}
+    res_np, ticks_np, wall_np, _ = drive(
+        cd, jobs, fleet, serving, synergai(None, rcs["numpy"]), degradations)
 
     card_fn = make_torch_score_fn(v2=v2)
+    card_pol = synergai(card_fn, rcs["card"])
     kernel.launches = 0
-    res_card, ticks_card, wall_card = drive(cd, jobs, fleet, serving,
-                                            synergai(card_fn))
+    res_card, ticks_card, wall_card, _ = drive(cd, jobs, fleet, serving,
+                                               card_pol, degradations)
     launches = kernel.launches
 
     cpu_fn = make_torch_score_fn(v2=v2, device="cpu")
-    res_cpu, _, wall_cpu = drive(cd, jobs, fleet, serving, synergai(cpu_fn))
+    cpu_pol = synergai(cpu_fn, rcs["cpu"])
+    res_cpu, _, wall_cpu, _ = drive(cd, jobs, fleet, serving, cpu_pol,
+                                    degradations)
     if kernel.launches != launches:
         raise SystemExit(f"FAIL {label}: the CPU run launched a kernel")
 
@@ -672,8 +769,14 @@ def main_path_run(label, cd, fleet, serving, streaming, v2, kernel):
     if canon(res_card) != canon(res_cpu):
         raise SystemExit(f"FAIL {label}: card results differ from the "
                          "device='cpu' run")
-    if len(res_card) != N_JOBS:
+    if len(res_card) != len(jobs):
         raise SystemExit(f"FAIL {label}: {len(res_card)} results")
+    caches, cpu_caches = caches_of(card_pol), caches_of(cpu_pol)
+    if ([c.profile_reclaims for c in caches]
+            != [c.profile_reclaims for c in cpu_caches]):
+        raise SystemExit(f"FAIL {label}: profile reclaims differ from the "
+                         "device='cpu' run")
+    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc)
     placed = {r.job.id: (r.worker, r.config) for r in res_card}
     differ = sum(placed[r.job.id] != (r.worker, r.config) for r in res_np)
     s_np, s_card = summarize(res_np), summarize(res_card)
@@ -698,32 +801,38 @@ def main_path_run(label, cd, fleet, serving, streaming, v2, kernel):
                                  "card": statistics.fmean(ticks_card) * 1e3},
         "card_scoring_ms_per_tick": split,
     }
-    print("main_path " + json.dumps(line), flush=True)
-    return launches, card_fn.rows / calls
+    if caches:
+        line["profile_reclaims"] = sum(c.profile_reclaims for c in caches)
+    line.update(loop)
+    print(f"{tag} " + json.dumps(line), flush=True)
+    return launches, card_fn.rows / calls, s_card
 
 
-def caches_of(policy):
-    """The device caches of a flat or hierarchical resident policy."""
-    subs = getattr(policy, "_subs", None)
-    return ([sub.cache for sub in subs.values()] if subs is not None
-            else [policy.cache])
-
-
-def resident_run(label, cd, fleet, jobs, serving, make_policy):
-    """The device-resident path: ``make_policy(score_fn)`` on the card, on
-    the CPU and with the numpy default (``score_fn=None``).  Returns the
-    launches of each tick kernel and the mean (J, cap) of the card's
-    ticks."""
+def resident_run(label, cd, fleet, jobs, serving, make_policy,
+                 degradations=(), make_rc=None, tag="main_path"):
+    """The device-resident path: ``make_policy(score_fn, rc)`` on the card,
+    on the CPU and with the numpy default (``score_fn=None``), each with a
+    fresh re-characterizer from ``make_rc`` if given.  Returns a namespace:
+    the launches of each tick kernel, the mean (J, cap) of the card's ticks,
+    the card's summary, and the card's and numpy's results and clusters."""
     from repro_torch.core import devicecache
+    from repro_torch.core.energy import edge_energy
     from repro_torch.core.metrics import summarize
     from repro_torch.core.scoring import make_torch_score_fn
     from repro_torch.kernels import scheduler_score as ss
-    res_np, ticks_np, wall_np = drive(cd, jobs, fleet, serving,
-                                      make_policy(None))
+    from repro_torch.launch.schedule import caches_of
+    rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
+                                                       "cpu")}
+    res_np, ticks_np, wall_np, cluster_np = drive(
+        cd, jobs, fleet, serving, make_policy(None, rcs["numpy"]),
+        degradations)
 
-    # per device_tick: queue length, pool rows, host-clock seconds
+    # per device_tick: queue length, pool rows, host-clock seconds; and the
+    # rows uploaded by the syncs in which a refresh reclaimed rows
     tick_log = []
+    reupload = [0]
     inner = devicecache.DeviceScoreCache.device_tick
+    inner_sync = devicecache.DeviceScoreCache.sync
 
     def device_tick(self, slots, *args, **kw):
         t0 = time.perf_counter()
@@ -731,20 +840,31 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy):
         tick_log.append((len(slots), self._d_cap, time.perf_counter() - t0))
         return out
 
-    card_pol = make_policy(make_torch_score_fn(device_cache=True))
+    def sync(self, *args, **kw):
+        before = (self.profile_reclaims, self.rows_uploaded)
+        out = inner_sync(self, *args, **kw)
+        if self.profile_reclaims > before[0]:
+            reupload[0] += self.rows_uploaded - before[1]
+        return out
+
+    card_pol = make_policy(make_torch_score_fn(device_cache=True),
+                           rcs["card"])
     devicecache.DeviceScoreCache.device_tick = device_tick
+    devicecache.DeviceScoreCache.sync = sync
     try:
         ss.tick_score.launches = ss.greedy_place.launches = 0
-        res_card, ticks_card, wall_card = drive(cd, jobs, fleet, serving,
-                                                card_pol)
+        res_card, ticks_card, wall_card, cluster_card = drive(
+            cd, jobs, fleet, serving, card_pol, degradations)
         launches = {"tick_score_kernel": ss.tick_score.launches,
                     "greedy_place_kernel": ss.greedy_place.launches}
     finally:
         devicecache.DeviceScoreCache.device_tick = inner
+        devicecache.DeviceScoreCache.sync = inner_sync
 
     cpu_pol = make_policy(make_torch_score_fn(device_cache=True,
-                                              device="cpu"))
-    res_cpu, _, wall_cpu = drive(cd, jobs, fleet, serving, cpu_pol)
+                                              device="cpu"), rcs["cpu"])
+    res_cpu, _, wall_cpu, cluster_cpu = drive(cd, jobs, fleet, serving,
+                                              cpu_pol, degradations)
     if (ss.tick_score.launches, ss.greedy_place.launches) != tuple(
             launches.values()):
         raise SystemExit(f"FAIL {label}: the CPU run launched a kernel")
@@ -757,13 +877,17 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy):
     if canon(res_card) != canon(res_cpu):
         raise SystemExit(f"FAIL {label}: card results differ from the "
                          "device='cpu' run")
+    if edge_energy(cluster_card) != edge_energy(cluster_cpu):
+        raise SystemExit(f"FAIL {label}: edge energy differs from the "
+                         "device='cpu' run")
     cpu_caches = caches_of(cpu_pol)
     for key in ("ticks", "rows_uploaded", "bytes_to_device", "fail_masks",
-                "flushes"):
+                "flushes", "profile_reclaims"):
         if (sum(getattr(c, key) for c in caches)
                 != sum(getattr(c, key) for c in cpu_caches)):
             raise SystemExit(f"FAIL {label}: counter {key} differs from the "
                              "device='cpu' run")
+    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc)
     if len(res_card) != len(jobs):
         raise SystemExit(f"FAIL {label}: {len(res_card)} results")
     placed = {r.job.id: (r.worker, r.config) for r in res_card}
@@ -794,9 +918,148 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy):
         "rows_uploaded": sum(c.rows_uploaded for c in caches),
         "fail_masks": sum(c.fail_masks for c in caches),
         "flushes": sum(c.flushes for c in caches),
+        "profile_reclaims": sum(c.profile_reclaims for c in caches),
+        "rows_reuploaded_after_refresh": reupload[0],
     }
-    print("main_path " + json.dumps(line), flush=True)
-    return launches, mean_j, mean_cap
+    line.update(loop)
+    print(f"{tag} " + json.dumps(line), flush=True)
+    return types.SimpleNamespace(
+        launches=launches, mean_j=mean_j, mean_cap=mean_cap, summary=s_card,
+        results=res_card, cluster=cluster_card, numpy_results=res_np,
+        numpy_cluster=cluster_np)
+
+
+def host_policies():
+    """SLO-MAEL and the five baselines by their names (``SLO-MAEL``, ``RR``,
+    ...): the launcher's host policies."""
+    from repro_torch.launch.schedule import HOST_POLICIES
+    return {cls.name: cls for cls in HOST_POLICIES.values()}
+
+
+def ratios(violations):
+    """The paper's two headlines (``examples/scheduler_comparison.py``):
+    SLO-MAEL's and the five baselines' mean violations over SynergAI's."""
+    syn = max(1, violations["SynergAI"])
+    return {"slo_mael_over_synergai": violations["SLO-MAEL"] / syn,
+            "baselines_over_synergai":
+                statistics.fmean(violations[n] for n in BASELINES) / syn}
+
+
+def comparison(cd, fleet, jobs, synergai_run):
+    """SLO-MAEL and the five baselines on the host over the 10k-job MMPP
+    jobs, beside the job-resident SynergAI run on the card."""
+    from repro_torch.core.metrics import summarize
+    rows = {"SynergAI": {
+        "violations": synergai_run.summary["violations"],
+        "goodput_jps": synergai_run.summary["goodput_jps"],
+        "device": "card"}}
+    for name, cls in host_policies().items():
+        res, ticks, wall, _ = drive(cd, jobs, fleet, "job", cls())
+        s = summarize(res)
+        if len(res) != len(jobs) or not math.isfinite(s["e2e_avg_s"]):
+            raise SystemExit(f"FAIL comparison {name}: {len(res)} results, "
+                             f"{s['e2e_avg_s']} e2e")
+        rows[name] = {"violations": s["violations"],
+                      "goodput_jps": s["goodput_jps"], "device": "host",
+                      "wall_s": wall,
+                      "schedule_ms_per_call": statistics.fmean(ticks) * 1e3}
+    line = {"run": "mmpp-10k", "jobs": len(jobs), "pools": len(fleet),
+            "policies": rows,
+            **ratios({k: v["violations"] for k, v in rows.items()}),
+            "paper": {"slo_mael_over_synergai": 2.4,
+                      "baselines_over_synergai": 7.1}}
+    print("comparison " + json.dumps(line), flush=True)
+
+
+def paper_experiments(cd):
+    """The paper's three experiments x five seeds, all seven policies, with
+    SynergAI on the resident backend on the card (held to the same run on
+    the CPU, its launches to its ticks) and, beside it, numpy SynergAI.
+    Returns the tick kernels' launches."""
+    from repro_torch.core.job import make_experiment
+    from repro_torch.core.metrics import summarize
+    from repro_torch.core.scheduler import SynergAI
+    from repro_torch.core.scoring import make_torch_score_fn
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels import scheduler_score as ss
+    policies = host_policies()
+    totals = {name: 0 for name in (*policies, "SynergAI", "SynergAI-numpy")}
+    by_exp = {}
+    launches = {"tick_score_kernel": 0, "greedy_place_kernel": 0}
+    ticks = 0
+    for exp, demand, freq in EXPERIMENTS:
+        by_exp[exp] = {}
+        for name in totals:
+            v = 0
+            for seed in EXPERIMENT_SEEDS:
+                jobs = make_experiment(cd, demand, freq, seed=seed)
+                if name == "SynergAI":
+                    pol = SynergAI(score_fn=make_torch_score_fn(
+                        device_cache=True))
+                    ss.tick_score.launches = ss.greedy_place.launches = 0
+                    res = Simulator(cd, pol, seed=seed).run(jobs)
+                    got = (ss.tick_score.launches, ss.greedy_place.launches)
+                    cpu = Simulator(cd, SynergAI(score_fn=make_torch_score_fn(
+                        device_cache=True, device="cpu")), seed=seed).run(jobs)
+                    if got != (pol.cache.ticks,) * 2 or pol.cache.ticks <= 0:
+                        raise SystemExit(f"FAIL paper {exp} seed {seed}: "
+                                         f"launches {got} for "
+                                         f"{pol.cache.ticks} device ticks")
+                    if canon(res) != canon(cpu):
+                        raise SystemExit(f"FAIL paper {exp} seed {seed}: "
+                                         "card results differ from the "
+                                         "device='cpu' run")
+                    launches["tick_score_kernel"] += got[0]
+                    launches["greedy_place_kernel"] += got[1]
+                    ticks += pol.cache.ticks
+                else:
+                    pol = (SynergAI() if name == "SynergAI-numpy"
+                           else policies[name]())
+                    res = Simulator(cd, pol, seed=seed).run(jobs)
+                if len(res) != len(jobs):
+                    raise SystemExit(f"FAIL paper {exp} {name}: "
+                                     f"{len(res)} results")
+                v += summarize(res)["violations"]
+            by_exp[exp][name] = v
+            totals[name] += v
+    line = {"experiments": [e for e, _, _ in EXPERIMENTS],
+            "seeds": list(EXPERIMENT_SEEDS), "jobs_each": 24,
+            "violations": by_exp, "totals": totals,
+            "synergai_device_ticks": ticks, "launches": launches,
+            **ratios(totals),
+            "numpy": ratios({**totals, "SynergAI": totals["SynergAI-numpy"]}),
+            "paper": {"slo_mael_over_synergai": 2.4,
+                      "baselines_over_synergai": 7.1}}
+    print("paper " + json.dumps(line), flush=True)
+    return launches
+
+
+def energy_line(label, run):
+    """The energy accounting of a resident run, card against numpy."""
+    from repro_torch.core.energy import (edge_energy,
+                                         normalized_edge_energy,
+                                         offload_fraction)
+    norm = normalized_edge_energy({"card": run.cluster,
+                                   "numpy": run.numpy_cluster})
+    pools = sorted(norm["card"])
+    line = {
+        "run": label, "edge_pools": len(pools),
+        "normalized_edge_energy": {
+            k: {"mean": statistics.fmean(v.values()), "min": min(v.values())}
+            for k, v in norm.items()},
+        "normalized_max_abs_diff_card_vs_numpy": max(
+            abs(norm["card"][p] - norm["numpy"][p]) for p in pools),
+        "edge_energy_j": {
+            "card": sum(edge_energy(run.cluster).values()),
+            "numpy": sum(edge_energy(run.numpy_cluster).values())},
+        "offload_fraction": {
+            "card": offload_fraction(run.results, run.cluster),
+            "numpy": offload_fraction(run.numpy_results, run.numpy_cluster)},
+    }
+    if not all(math.isfinite(x) for x in (*line["edge_energy_j"].values(),
+                                          *line["offload_fraction"].values())):
+        raise SystemExit(f"FAIL energy {label}: non-finite {line}")
+    print("energy " + json.dumps(line), flush=True)
 
 
 def tick_stages(cd, fleet, jobs):
@@ -854,6 +1117,95 @@ def tick_stages(cd, fleet, jobs):
             "device_ticks": ticks, "device_tick_ms": ms["device_tick"],
             "split_ms": split}
     print("tick_stages " + json.dumps(line), flush=True)
+
+
+def scheduling_path():
+    """Phases 3, 3f and 3g; returns what the kernels line needs."""
+    from repro_torch.core.hierarchy import HierarchicalSynergAI
+    from repro_torch.core.offline import characterize
+    from repro_torch.core.scheduler import SynergAI
+    from repro_torch.core.workers import synth_fleet
+    from repro_torch.core.workload import (regional_scenario, scenario,
+                                           synth_degradations)
+    from repro_torch.kernels import scheduler_score as ss
+    # 3. the scheduling path at full size
+    cd = characterize()
+    fleet = synth_fleet(*POOLS)
+    mmpp = scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0)
+    streaming = scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0,
+                         serving="batched", streaming=(2.0, 2.5))
+    main_path = {
+        "scheduler_score": main_path_run(
+            "job-v1", cd, fleet, mmpp, "job", False, ss.scheduler_score),
+        "scheduler_score_v2": main_path_run(
+            "batched-streaming-v2", cd, fleet, streaming, "batched", True,
+            ss.scheduler_score_v2),
+    }
+    resident = {
+        "job-resident": resident_run(
+            "job-resident", cd, fleet, mmpp, "job", synergai),
+        "batched-streaming-resident": resident_run(
+            "batched-streaming-resident", cd, fleet, streaming, "batched",
+            lambda fn, rc: SynergAI(score_fn=fn, recharacterizer=rc,
+                                    energy_weight=0.5)),
+    }
+    energy_line("batched-streaming-resident",
+                resident["batched-streaming-resident"])
+    regions = synth_fleet(*POOLS, regions=3)
+    resident["hier-resident"] = resident_run(
+        "hier-resident", cd, regions,
+        regional_scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=regions, seed=0),
+        "job", lambda fn, rc: HierarchicalSynergAI(score_fn=fn,
+                                                   recharacterizer=rc))
+
+    tick_stages(cd, fleet, mmpp[:3000])
+
+    # 3f. drift: the same 64 pools over three regions, a third of the edge
+    # pools slowed ~5x from a third of the way in; stale, online and oracle
+    # re-characterization through the resident tick, online through v2, and
+    # online under the hierarchy (one re-characterizer for every region)
+    t_drift = time.perf_counter()
+    drift_jobs = scenario(cd, "drift", n_jobs=N_JOBS, fleet=regions, seed=0)
+    degs = synth_degradations(regions, drift_jobs[-1].arrival, **DRIFT)
+    print(f"drift: {len(degs)} of {len(regions)} pools degraded, factors "
+          f"{min(d.factor for d in degs):.3f}-"
+          f"{max(d.factor for d in degs):.3f}, onsets "
+          f"{min(d.at for d in degs):.1f}-{max(d.at for d in degs):.1f} s "
+          f"of {drift_jobs[-1].arrival:.1f} s", flush=True)
+    drift = {
+        name: resident_run(f"drift-resident-{name}", cd, regions,
+                           drift_jobs, "job", synergai, degradations=degs,
+                           make_rc=make_rc, tag="drift")
+        for name, make_rc in (("stale", None), ("online", online_rc),
+                              ("oracle", oracle_rc(cd, regions, degs)))}
+    drift_v2 = main_path_run("drift-v2-online", cd, regions, drift_jobs,
+                             "job", True, ss.scheduler_score_v2,
+                             degradations=degs, make_rc=online_rc,
+                             tag="drift")
+    drift["hier-online"] = resident_run(
+        "drift-hier-resident-online", cd, regions, drift_jobs, "job",
+        lambda fn, rc: HierarchicalSynergAI(score_fn=fn, recharacterizer=rc),
+        degradations=degs, make_rc=online_rc, tag="drift")
+    stale_v = drift["stale"].summary["violations"]
+    online_v = drift["online"].summary["violations"]
+    if not online_v < stale_v:
+        raise SystemExit(f"FAIL drift: {online_v} violations online, "
+                         f"{stale_v} stale")
+    print("drift_headline " + json.dumps({
+        "violations": {k: r.summary["violations"] for k, r in drift.items()}
+        | {"v2-online": drift_v2[2]["violations"]},
+        "stale_over_online": stale_v / max(1, online_v),
+        "seconds": time.perf_counter() - t_drift}), flush=True)
+
+    # 3g. the paper's comparison policies: SLO-MAEL and the five baselines
+    # on the host beside the job-resident run; then the paper's experiments
+    t_cmp = time.perf_counter()
+    comparison(cd, fleet, mmpp, resident["job-resident"])
+    paper_launches = paper_experiments(cd)
+    print(f"comparison: {time.perf_counter() - t_cmp:.1f} s", flush=True)
+    return types.SimpleNamespace(
+        fleet=fleet, main_path=main_path, resident=resident, drift=drift,
+        drift_v2=drift_v2, paper_launches=paper_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1564,11 +1916,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     from repro_torch._device import resolve_device
-    from repro_torch.core.hierarchy import HierarchicalSynergAI
-    from repro_torch.core.offline import characterize
-    from repro_torch.core.scheduler import SynergAI
-    from repro_torch.core.workers import synth_fleet
-    from repro_torch.core.workload import regional_scenario, scenario
     from repro_torch.kernels import _build
     from repro_torch.kernels import scheduler_score as ss
 
@@ -1688,35 +2035,9 @@ def main() -> int:
         router_designs(T, 4096, 16, 2, rate)
     torch.cuda.empty_cache()
 
-    # 3. the scheduling path at full size
-    cd = characterize()
-    fleet = synth_fleet(*POOLS)
-    main_path = {
-        "scheduler_score": main_path_run(
-            "job-v1", cd, fleet, "job", None, False, ss.scheduler_score),
-        "scheduler_score_v2": main_path_run(
-            "batched-streaming-v2", cd, fleet, "batched", (2.0, 2.5), True,
-            ss.scheduler_score_v2),
-    }
-    resident = {
-        "job-resident": resident_run(
-            "job-resident", cd, fleet,
-            scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0),
-            "job", synergai),
-        "batched-streaming-resident": resident_run(
-            "batched-streaming-resident", cd, fleet,
-            scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0,
-                     serving="batched", streaming=(2.0, 2.5)),
-            "batched", lambda fn: SynergAI(score_fn=fn, energy_weight=0.5)),
-    }
-    regions = synth_fleet(*POOLS, regions=3)
-    resident["hier-resident"] = resident_run(
-        "hier-resident", cd, regions,
-        regional_scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=regions, seed=0),
-        "job", lambda fn: HierarchicalSynergAI(score_fn=fn))
-
-    tick_stages(cd, fleet, scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet,
-                                    seed=0)[:3000])
+    # 3, 3f-3g. the scheduling path at full size, drift, the comparison
+    sched = scheduling_path()
+    fleet = sched.fleet
 
     # 4-6. the serving path at full width, its parity, a decode-step profile
     from repro_torch._tree import tree_leaves, tree_map
@@ -1855,8 +2176,22 @@ def main() -> int:
          "op": "torch.add of two one-element float32 tensors"}), flush=True)
     W = len(fleet)
     rows = []
+    # each path's launches, counted from 0 just before it: the scoring
+    # kernels' main paths (v2 also in the v2 drift run), the tick kernels'
+    # resident runs of 3 and 3f and the resident SynergAI runs of 3g
+    main_path, resident, drift = sched.main_path, sched.resident, sched.drift
+    by_path = {"scheduler_score": {"job-v1": main_path["scheduler_score"][0]},
+               "scheduler_score_v2": {
+                   "batched-streaming-v2": main_path["scheduler_score_v2"][0],
+                   "drift-v2-online": sched.drift_v2[0]}}
+    for kname in ("tick_score_kernel", "greedy_place_kernel"):
+        by_path[kname] = {
+            **{label: run.launches[kname] for label, run in resident.items()},
+            **{f"drift-{label}": run.launches[kname]
+               for label, run in drift.items()},
+            "paper-experiments": sched.paper_launches[kname]}
     for kname, k in kernels.items():
-        launches, mean_rows = main_path[kname]
+        _, mean_rows, _ = main_path[kname]
         J = max(1, round(mean_rows))
         inputs = to_card(k["inputs"](J, W, seed=J))
         r = hold_kernel(kname, k["wrapper"], k["plain"], inputs,
@@ -1867,15 +2202,18 @@ def main() -> int:
         rows.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scheduler_score.cu",
-            "replaces": k["replaces"], "launches": launches,
+            "replaces": k["replaces"],
+            "launches": sum(by_path[kname].values()),
+            "launches_by_path": by_path[kname],
             "max_abs_err": max(worst[kname], r["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "device_ms": r["device_ms"],
             "shape": [J, W]})
-    # the tick kernels: launches summed over the three resident runs, held
-    # at the job-resident run's mean queue length and pool rows
-    _, mean_j, mean_cap = resident["job-resident"]
+    # the tick kernels: launches summed over the resident paths, held at
+    # the job-resident run's mean queue length and pool rows
+    mean_j = resident["job-resident"].mean_j
+    mean_cap = resident["job-resident"].mean_cap
     J, cap = max(1, round(mean_j)), max(1, round(mean_cap))
     inputs = messy_tick_inputs(J, cap, W, seed=J)
     score, walk, steps = hold_tick(inputs, False, rate)
@@ -1891,7 +2229,8 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/scheduler_tick.cu",
             "replaces": replaces,
-            "launches": sum(run[0][kname] for run in resident.values()),
+            "launches": sum(by_path[kname].values()),
+            "launches_by_path": by_path[kname],
             "max_abs_err": max(worst[kname], r["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",

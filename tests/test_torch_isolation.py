@@ -48,6 +48,8 @@ def test_subprocess_simulation_loads_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch\n"
+        "from repro_torch.core import (recharacterize, slo_mael, baselines, "
+        "energy, simulator_legacy)\n"
         "from repro_torch.launch.schedule import main\n"
         "stats = main(['--device', 'cpu', '--jobs', '60', '--pools', '1', "
         "'2', '2', '--serving', 'batched', '--streaming', '2.0', '2.5', "
@@ -155,3 +157,59 @@ def test_subprocess_resident_run_loads_no_jax_and_no_reference():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1] == "ISOLATED"
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The CPU plain runs are thousands of small tensor ops; torch's
+    intra-op threads only spin on them and starve the other test
+    workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("argv,policy,device", [
+    (["--kind", "drift", "--degrade", "5.0", "0.35", "--recharacterize",
+      "online", "--resident"], "SynergAI", "cpu"),
+    (["--kind", "drift", "--degrade", "5.0", "0.35", "--recharacterize",
+      "oracle", "--resident", "--regions", "3"], "SynergAI-H", "cpu"),
+    (["--policy", "slo-mael"], "SLO-MAEL", "host"),
+    (["--policy", "slo-mael", "--kind", "drift", "--degrade", "5.0", "0.35",
+      "--recharacterize", "online"], "SLO-MAEL", "host"),
+    (["--policy", "be", "--serving", "batched", "--streaming", "2.0", "2.5"],
+     "BE", "host"),
+])
+def test_entry_point_runs_the_loop_and_the_comparison_policies_on_the_cpu(
+        capsys, argv, policy, device):
+    stats = schedule.main(["--device", "cpu", "--jobs", "300", "--pools",
+                           "2", "5", "5", *argv])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == stats and stats["jobs"] == 300
+    assert (stats["policy"], stats["device"]) == (policy, device)
+    if "online" in argv:
+        assert stats["refreshes"] >= 1
+    if "--resident" in argv and "online" in argv:
+        assert stats["profile_reclaims"] > 0
+    if "--recharacterize" not in argv:
+        assert stats["refreshes"] == stats["profile_reclaims"] == 0
+
+
+def test_entry_point_refuses_what_a_policy_cannot_run(monkeypatch):
+    base = ["--device", "cpu", "--jobs", "20", "--pools", "1", "2", "2"]
+    for bad in (["--policy", "rr", "--resident"], ["--policy", "mru", "--v2"],
+                ["--policy", "lru", "--recharacterize", "online"],
+                ["--policy", "slo-mael", "--regions", "2"],
+                ["--recharacterize", "oracle", "--resident"]):
+        with pytest.raises(SystemExit):
+            schedule.main(base + bad)
+    # the v1 kernel does not read the profile overlay (the reference's rule)
+    with pytest.raises(ValueError, match="reads the profile overlay"):
+        schedule.main(base + ["--recharacterize", "online"])
+    _no_cuda(monkeypatch)
+    for argv in (["--policy", "slo-mael"], ["--kind", "drift", "--resident",
+                                            "--recharacterize", "online"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            schedule.main(["--jobs", "5", *argv])
