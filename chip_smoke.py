@@ -48,7 +48,8 @@ Phases, in order; any failure exits non-zero:
    (f) ``moe_routing`` at [T, D, E, k] = [4096, 4096, 16, 2] (the phi3.5
        prefill), [4, 4096, 16, 2] (a decode step), [1, 4096, 16, 2],
        [SWITCH_T, 4096, 16, 2] (the first T of the prefill design),
-       [1000, 4000, 16, 2], [4096, 5120, 160, 6] (deepseek-v2), an
+       [1000, 4000, 16, 2], [4096, 5120, 160, 6] and [4, 5120, 160, 6]
+       (the deepseek-v2 prefill and decode step), an
        underflowing probability and tied experts, x in bf16 and f32, gates
        and mask bit-equal; no one PyTorch call routes, so the three-call
        sequence (matmul, softmax, topk + scatter) is timed as context; then
@@ -112,6 +113,29 @@ Phases, in order; any failure exits non-zero:
    f32 on the first 4 layers and (iii) in bf16 on all 24, every routing
    call's mask recorded and every step over the bound or parting of tokens
    explained by a near-tie; its decode-step profile with the routing share;
+4d. the MLA family: deepseek-v2-236b at full width (MLA ranks 1,536 / 512,
+   160 routed + 2 shared experts, top-6) with its depth cut from 60 to 7
+   layers (all 60 do not fit the card) in bf16, the same 4 requests on the
+   engine's default, paper-faithful path (``absorb_mla=False``); the
+   routing launches are counted from 0 and must be 7 x 4 in prefill and
+   7 x 31 x 4 in decode, with no attention or WKV launch (MLA's shapes
+   take the XLA-path attention); its parity (i) with the router on its
+   plain version, logits and tokens bit-identical, (ii) in f32 on the first
+   2 layers and (iii) in bf16 on all 7, as 4c's; the absorbed decode
+   (``absorb_mla=True``) held to the logit bounds, bf16 on all 7 layers
+   and f32 on the first 2, against the expanded decode at the absorbed
+   mode's score scale (the two modes divide the scores by different
+   widths, so they differ at their own scales; that difference is
+   printed); decode-step profiles of both modes;
+4e. the VLM family: llama-3.2-vision-11b at full width, all 40 layers (32
+   self-attention, 8 gated cross-attention layers at 3, 8, ..., 38), the
+   cross layers' gates set to 0.5 (the init's 0 would zero their path),
+   ``vision_embeds`` [4, 1,601, 4,096] of 0.02 x a standard normal, the
+   same 4 requests; the attention launches are counted from 0 and must be
+   32 x 4 flash in prefill and 32 x 31 x 4 decode in decode (the cross
+   layers' shapes take the XLA-path attention), no routing or WKV launch;
+   its parity in bf16 on all 40 layers and in f32 on the first 10 (two
+   cross layers among them), and its decode-step profile;
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -189,13 +213,25 @@ LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 # 24 layers (all 32 are 83.7 GB in bf16, more than the card's 80 GB; 24 are
 # 62.9 GB), and 4 of them, in f32, for the f32 parity (21.9 GB)
 MOE_ARCH, MOE_LAYERS, MOE_F32_LAYERS = "phi3.5-moe-42b-a6.6b", 24, 4
+# the MLA serving cell: deepseek-v2 at full width, its depth cut from 60 to
+# 7 layers (one layer holds 3.971 B parameters, 7.94 GB in bf16; 7 and the
+# embeddings are 57.7 GB, and 8 would leave too little for the prefill's
+# naive attention, a [4, 128, 1024, 1024] f32 score tensor of 2.1 GB and
+# its softmax), and 2 of them, in f32, for the f32 parity
+MLA_ARCH, MLA_LAYERS, MLA_F32_LAYERS = "deepseek-v2-236b", 7, 2
+# the VLM serving cell: llama-3.2-vision at full width, all 40 layers, every
+# cross layer's gates set to VLM_GATE, and its first 10 layers (two cross
+# layers among them), in f32, for the f32 parity
+VLM_ARCH, VLM_GATE, VLM_F32_LAYERS = "llama-3.2-vision-11b", 0.5, 10
 # the router (T, D, E, top_k, case): the phi3.5 prefill (4 x 1,024 tokens),
-# one decode step, one token, a ragged shape, the deepseek-v2 shape, a
-# probability that underflows (one logit leads by > 110) and tied experts
-# (duplicated router columns); held bit for bit (main adds the switch-over)
+# one decode step, one token, a ragged shape, the deepseek-v2 prefill and
+# decode step, a probability that underflows (one logit leads by > 110) and
+# tied experts (duplicated router columns); held bit for bit (main adds the
+# switch-over)
 ROUTING_HOLDS = ((4096, 4096, 16, 2, "random"), (4, 4096, 16, 2, "random"),
                  (1, 4096, 16, 2, "random"),
                  (1000, 4000, 16, 2, "random"), (4096, 5120, 160, 6, "random"),
+                 (4, 5120, 160, 6, "random"),
                  (512, 4096, 16, 2, "underflow"), (512, 4096, 16, 2, "tie"))
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
@@ -1561,6 +1597,12 @@ def launch_counts(wrappers):
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
+def as_batch(prompt):
+    """A request's prefill batch: {"tokens": prompt}, or the prompt itself
+    where it is already a batch (a VLM's, with its ``vision_embeds``)."""
+    return prompt if isinstance(prompt, dict) else {"tokens": prompt}
+
+
 def serve_run(model, params, prompts, wrappers, want_prefill, want_decode):
     """Serve ``prompts`` through ``InferenceEngine``, each request placed by
     the serving launcher's Eq. 1-4 plan.  The launch counts of ``wrappers``
@@ -1591,7 +1633,7 @@ def serve_run(model, params, prompts, wrappers, want_prefill, want_decode):
     for rid, toks in enumerate(prompts):
         plan = place(cd, arch, rid)
         pre, dec = eng.stats.prefill_s, eng.stats.decode_s
-        out = eng.generate({"tokens": toks}, GEN)
+        out = eng.generate(as_batch(toks), GEN)
         pre, dec = eng.stats.prefill_s - pre, eng.stats.decode_s - dec
         if out.shape != (SERVE_BATCH, GEN) or not bool(
                 ((out >= 0) & (out < model.cfg.vocab)).all()):
@@ -1637,7 +1679,7 @@ def traced_generate(model, params, toks):
         return greedy(logits)
 
     out = InferenceEngine(model, params, max_len=PROMPT + GEN + 8,
-                          sampler=record).generate({"tokens": toks}, GEN)
+                          sampler=record).generate(as_batch(toks), GEN)
     return torch.stack(steps), out
 
 
@@ -1742,21 +1784,13 @@ def moe_parity(model, params, toks, dtype_name, wrappers, plains):
     probability <= 2 max |delta prob| of the token: each of the two moves
     by at most max |delta prob|); a parting before it only by a top-2
     logit near-tie, as in ``parity``."""
-    from contextlib import ExitStack
     from repro_torch.kernels import moe_routing as mr
-    target = "repro_torch.models.layers.moe_routing"
     runs = {}
     for side, route in (("kernel", mr.moe_routing),
                         ("plain", mr.moe_routing_plain)):
-        log = []
         counts = launch_counts(wrappers)
-        with ExitStack() as stack:
-            if side == "plain":
-                for name, plain in plains.items():
-                    stack.enter_context(mock.patch(name, plain))
-            stack.enter_context(mock.patch(target,
-                                           routing_recorder(route, log)))
-            logits, out = traced_generate(model, params, toks)
+        runs[side] = routed_generate(model, params, toks, route,
+                                     plains if side == "plain" else {})
         launched = {k: n - counts[k] for k, n in launch_counts(wrappers).items()}
         if side == "kernel" and not all(launched.values()):
             raise SystemExit(f"FAIL moe parity: the kernel run launched "
@@ -1764,9 +1798,29 @@ def moe_parity(model, params, toks, dtype_name, wrappers, plains):
         if side == "plain" and any(launched.values()):
             raise SystemExit(f"FAIL moe parity: the plain run launched "
                              f"{launched}")
-        runs[side] = (logits, out, log)
-    (logits_k, toks_k, log_k), (logits_p, toks_p, log_p) = (runs["kernel"],
-                                                           runs["plain"])
+    return held_moe_runs("moe_parity", model, dtype_name, runs["kernel"],
+                         runs["plain"])
+
+
+def routed_generate(model, params, toks, route, patches):
+    """``traced_generate`` with the router ``route`` (its kernel or plain
+    version) recording every call's mask and probabilities, and the names
+    of ``patches`` patched: (logits, tokens, routing log)."""
+    from contextlib import ExitStack
+    log = []
+    with ExitStack() as stack:
+        for name, fn in patches.items():
+            stack.enter_context(mock.patch(name, fn))
+        stack.enter_context(mock.patch("repro_torch.models.layers.moe_routing",
+                                       routing_recorder(route, log)))
+        logits, out = traced_generate(model, params, toks)
+    return logits, out, log
+
+
+def held_moe_runs(tag, model, dtype_name, run_k, run_p):
+    """Two ``routed_generate`` runs held by ``moe_parity``'s rule, the
+    second (``run_p``) the reference; prints one ``tag`` line."""
+    (logits_k, toks_k, log_k), (logits_p, toks_p, log_p) = run_k, run_p
     T, B = logits_p.shape[:2]
     first, n_diff = first_routing_partings(log_k, log_p, B,
                                            model.cfg.n_layers,
@@ -1799,10 +1853,10 @@ def moe_parity(model, params, toks, dtype_name, wrappers, plains):
             "first_routing_parting": first, "equal_tokens": equal,
             "bound": bound, "worst_rel_delta": worst, "partings": partings,
             "over_bound": over}
-    print("moe_parity " + json.dumps(line), flush=True)
+    print(f"{tag} " + json.dumps(line), flush=True)
     if (any(not o["explained"] for o in over)
             or any(not p["explained"] for p in partings)):
-        raise SystemExit(f"FAIL moe parity {dtype_name}: a step over the "
+        raise SystemExit(f"FAIL {tag} {dtype_name}: a step over the "
                          "bound or a parting of tokens is not explained")
     return line
 
@@ -1831,14 +1885,103 @@ def routing_exact_parity(model, params, toks, wrappers):
     if (not line["logits_equal"] or not line["tokens_equal"]
             or not line["kernel_run_launches"]["moe_routing"]
             or line["plain_router_run_launches"]["moe_routing"]
-            or not line["plain_router_run_launches"]["flash_attention"]):
+            or ("flash_attention" in wrappers and not line[
+                "plain_router_run_launches"]["flash_attention"])):
         raise SystemExit("FAIL routing parity: the router's kernel and its "
                          "plain version part on the served path")
     return line
 
 
+def absorbed(model):
+    """``model`` with its decode on the absorbed MLA path."""
+    import functools
+    return dataclasses.replace(
+        model, decode=functools.partial(model.decode, absorb_mla=True))
+
+
+def absorb_parity(model, params, toks):
+    """The absorbed MLA decode (``absorb_mla=True``: wk_b folded into q,
+    wv_b into the output, attention in the rank-R latent space as MQA)
+    against the expanded decode of the engine's default path, the same
+    prompts and prefill.  The JAX layer divides the absorbed scores by
+    sqrt(R + rope) (576), the expanded ones by sqrt(nope + rope) (192): at
+    their own scales the two modes are different functions, and that
+    difference is printed.  Held to ``LOGIT_BOUND`` by ``moe_parity``'s
+    rule (a step over it, or a parting of tokens, explained by a near-tie
+    routing flip) is the expanded decode with its decode queries scaled by
+    sqrt(192 / 576), the absorbed mode's softmax, contracted in the other
+    order (the scaled queries kept in f32, where the attention computes);
+    the router's kernel runs in all three runs."""
+    import torch
+    from repro_torch.kernels import moe_routing as mr
+    from repro_torch.models import common
+    m = model.cfg.mla
+    ratio = math.sqrt((m.qk_nope_head_dim + m.qk_rope_head_dim)
+                      / (m.kv_lora_rank + m.qk_rope_head_dim))
+
+    def scaled(cfg, q, k, v, **kw):
+        if q.shape[1] != 1 or kw.get("k_valid") is None:
+            return common.attention(cfg, q, k, v, **kw)
+        return common.attention(cfg, q.float() * ratio, k.float(), v.float(),
+                                **kw).to(q.dtype)
+
+    run_a = routed_generate(absorbed(model), params, toks, mr.moe_routing,
+                            {})
+    logits_a, toks_a, _ = run_a
+    logits_e, toks_e, _ = routed_generate(model, params, toks,
+                                          mr.moe_routing, {})
+    run_s = routed_generate(model, params, toks, mr.moe_routing,
+                            {"repro_torch.models.layers.attention": scaled})
+    own = (logits_a - logits_e).abs().amax(-1) / logits_e.abs().amax(-1)
+    print("absorb_scales " + json.dumps({
+        "arch": model.cfg.name, "score_scale_absorbed": 1 / math.sqrt(
+            m.kv_lora_rank + m.qk_rope_head_dim),
+        "score_scale_expanded": 1 / math.sqrt(m.qk_nope_head_dim
+                                              + m.qk_rope_head_dim),
+        "prefill_logits_equal": torch.equal(logits_a[0], logits_e[0]),
+        "worst_rel_delta_at_own_scales": float(own.max()),
+        "equal_tokens_at_own_scales": int((toks_a == toks_e).sum())}),
+        flush=True)
+    if not torch.equal(logits_a[0], logits_e[0]):
+        raise SystemExit("FAIL absorb parity: the two modes' prefills differ")
+    return held_moe_runs("absorb_parity", model, model.cfg.dtype, run_a,
+                         run_s)
+
+
+def first_layers(params, cfg, n):
+    """A clone of the embeddings and the first ``n`` layers of ``params``:
+    the groups of ``cfg`` cut to ``n`` layers, each a prefix of the full
+    layout's group of the same kind."""
+    from repro_torch._tree import tree_map
+    from repro_torch.models.decoder import build_layout
+    full = build_layout(cfg)
+    groups = []
+    for g, f, gp in zip(build_layout(dataclasses.replace(cfg, n_layers=n)),
+                        full, params["groups"]):
+        if g.spec != f.spec or g.n > f.n:
+            raise SystemExit(f"FAIL first_layers: {g} is not a prefix of {f}")
+        groups.append(tree_map(lambda t, k=g.n: t[:k].clone(), gp))
+    return {"embed": tree_map(lambda t: t.clone(), params["embed"]),
+            "groups": groups}
+
+
+def set_gates(params, cfg, value):
+    """Every cross layer's ``gate_attn`` and ``gate_ffn`` set to ``value``
+    (the init's 0 would multiply the whole cross-attention path by
+    tanh(0) = 0); returns the number of cross layers."""
+    from repro_torch.models.decoder import build_layout
+    n = 0
+    for g, gp in zip(build_layout(cfg), params["groups"]):
+        if g.spec.kind == "cross":
+            gp["attn"]["gate_attn"].fill_(value)
+            gp["attn"]["gate_ffn"].fill_(value)
+            n += g.n
+    return n
+
+
 def decode_profile(model, params, toks, share=("decode_attention_share",
-                                               "decode_attention_"), steps=4):
+                                               "decode_attention_"), steps=4,
+                   mode=None):
     """Host and device time of ``steps`` decode steps after the prompt:
     host ms per step (the device synchronised at the end), device ms per
     step (all CUDA kernels in the profiler's trace), idle share, the share
@@ -1849,10 +1992,11 @@ def decode_profile(model, params, toks, share=("decode_attention_share",
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.kvcache import pad_cache
     from repro_torch.serving.sampling import greedy
-    logits, caches = model.prefill(params, {"tokens": toks})
-    caches = pad_cache(caches, model.init_cache(toks.shape[0],
-                                                PROMPT + GEN + 8))
-    state = {"tok": greedy(logits), "pos": toks.shape[1], "caches": caches}
+    batch = as_batch(toks)
+    B, S = batch["tokens"].shape
+    logits, caches = model.prefill(params, batch)
+    caches = pad_cache(caches, model.init_cache(B, PROMPT + GEN + 8))
+    state = {"tok": greedy(logits), "pos": S, "caches": caches}
 
     def step():
         logits, state["caches"] = model.decode(
@@ -1882,6 +2026,7 @@ def decode_profile(model, params, toks, share=("decode_attention_share",
     part = sum(v for k, v in by_name.items() if share[1] in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     line = {"arch": model.cfg.name, "steps": steps,
+            **({"mode": mode} if mode else {}),
             "host_ms_per_step": host_ms,
             "device_ms_per_step": device if by_name else None,
             "idle_share": 1.0 - device / host_ms if by_name else None,
@@ -1892,6 +2037,149 @@ def decode_profile(model, params, toks, share=("decode_attention_share",
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
     print("decode_profile " + json.dumps(line), flush=True)
     return line
+
+
+def kernel_wrappers():
+    """The model kernels' wrappers by name (each counts its launches)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_routing as mr
+    from repro_torch.kernels import rwkv_scan as rs
+    return {"flash_attention": fa.flash_attention,
+            "decode_attention": da.decode_attention,
+            "moe_routing": mr.moe_routing, "rwkv_scan": rs.rwkv_scan}
+
+
+def serve_mla(dcfg, f32_layers, full_layers, device=None):
+    """Phase 4d on ``dcfg`` (deepseek-v2 at full width, its depth cut): the
+    serving run, its launches held to the router's alone; parity (i) the
+    router alone, bit for bit, (iii) bf16 on all layers, (ii) f32 on the
+    first ``f32_layers``; the absorbed decode against the expanded one
+    (``absorb_parity``) in bf16 on all layers and in f32 on the first;
+    decode-step profiles of both modes.  ``device``: the card unless the
+    CPU is asked for (a rehearsal at a reduced size).  Returns (launches,
+    the expanded and the absorbed profile)."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models.registry import build_model
+    wrappers = kernel_wrappers()
+    dmodel = build_model(dcfg, device=device)
+    t0 = time.perf_counter()
+    params = dmodel.init_params(torch.Generator(device=dmodel.device)
+                                .manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    L = dcfg.n_layers
+    per_layer = sum(t.numel() for t in tree_leaves(params["groups"])) / L
+    m, e = dcfg.mla, dcfg.moe
+    print(f"params: {dcfg.name} {dcfg.dtype}, {L} of {full_layers} layers x "
+          f"d_model {dcfg.d_model}, {dcfg.n_heads} heads, MLA ranks "
+          f"{m.q_lora_rank} / {m.kv_lora_rank}, qk {m.qk_nope_head_dim} + "
+          f"{m.qk_rope_head_dim}, v {m.v_head_dim}, {e.n_experts} routed + "
+          f"{e.n_shared} shared experts of {e.d_ff_expert} top-{e.top_k}, "
+          f"{n_params / 1e9:.3f} B parameters in "
+          f"{time.perf_counter() - t0:.1f} s; depth cut to {L}: a layer "
+          f"holds {per_layer / 1e9:.3f} B parameters "
+          f"({2 * per_layer / 1e9:.2f} GB in bf16), so all {full_layers} do "
+          "not fit the card's 80 GB, and one more would leave too little for "
+          "the prefill's naive attention ([4, 128, 1024, 1024] f32 scores, "
+          "2.1 GB, and its softmax)", flush=True)
+    rng = torch.Generator(device=dmodel.device).manual_seed(1)
+    prompts = [torch.randint(0, dcfg.vocab, (SERVE_BATCH, PROMPT),
+                             generator=rng, device=dmodel.device)
+               for _ in range(REQUESTS)]
+    router = {"moe_routing": wrappers["moe_routing"]}
+    none = {k: 0 for k in wrappers if k != "moe_routing"}
+    launches = serve_run(
+        dmodel, params, prompts, wrappers,
+        {"moe_routing": L * REQUESTS, **none},
+        {"moe_routing": L * (GEN - 1) * REQUESTS, **none})
+    routing_exact_parity(dmodel, params, prompts[0], router)
+    moe_parity(dmodel, params, prompts[0], "bfloat16", router, {})
+    absorb_parity(dmodel, params, prompts[0])
+    share = ("moe_routing_share", "moe_routing_kernel")
+    profiles = (decode_profile(dmodel, params, prompts[0], share=share,
+                               mode="expanded"),
+                decode_profile(absorbed(dmodel), params, prompts[0],
+                               share=share, mode="absorb_mla"))
+    # the f32 parity on the first layers: cloned in bf16, the served params
+    # freed, and only then cast, so the card never holds both
+    first = first_layers(params, dcfg, f32_layers)
+    del params
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.float(), first)
+    del first
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(
+        dcfg, n_layers=f32_layers, dtype="float32"), device=dmodel.device)
+    moe_parity(model32, params, prompts[0], "float32", router, {})
+    absorb_parity(model32, params, prompts[0])
+    del params, prompts
+    torch.cuda.empty_cache()
+    return (launches,) + profiles
+
+
+def serve_vlm(vcfg, f32_layers, device=None):
+    """Phase 4e on ``vcfg`` (llama-3.2-vision at full width): every cross
+    layer's gates set to ``VLM_GATE``, the serving run with its
+    ``vision_embeds``, its launches held to flash in prefill and decode
+    attention in decode on the self layers alone; parity in bf16 on all
+    layers and in f32 on the first ``f32_layers``; a decode-step profile.
+    ``device`` as in ``serve_mla``.  Returns (launches, profile)."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import vision_embeds
+    from repro_torch.models.registry import build_model
+    wrappers = kernel_wrappers()
+    attn = {k: wrappers[k] for k in ("flash_attention", "decode_attention")}
+    attn_plains = {
+        "repro_torch.models.common.flash_attention": fa.flash_attention_plain,
+        "repro_torch.models.common.decode_attention":
+            da.decode_attention_plain}
+    vmodel = build_model(vcfg, device=device)
+    t0 = time.perf_counter()
+    params = vmodel.init_params(torch.Generator(device=vmodel.device)
+                                .manual_seed(0))
+    n_cross = set_gates(params, vcfg, VLM_GATE)
+    torch.cuda.synchronize()
+    n_self = vcfg.n_layers - n_cross
+    print(f"params: {vcfg.name} {vcfg.dtype}, {vcfg.n_layers} layers "
+          f"({n_self} self-attention, {n_cross} cross-attention) x d_model "
+          f"{vcfg.d_model}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s; every cross "
+          f"layer's gate_attn and gate_ffn set to {VLM_GATE} (the init's 0 "
+          "would multiply the cross-attention path by tanh(0) = 0)",
+          flush=True)
+    rng = torch.Generator(device=vmodel.device).manual_seed(1)
+    prompts = [{"tokens": torch.randint(0, vcfg.vocab, (SERVE_BATCH, PROMPT),
+                                        generator=rng, device=vmodel.device),
+                "vision_embeds": vision_embeds(vcfg, SERVE_BATCH, rng,
+                                               vmodel.device)}
+               for _ in range(REQUESTS)]
+    none = {"moe_routing": 0, "rwkv_scan": 0}
+    launches = serve_run(
+        vmodel, params, prompts, wrappers,
+        {"flash_attention": n_self * REQUESTS, "decode_attention": 0, **none},
+        {"flash_attention": 0,
+         "decode_attention": n_self * (GEN - 1) * REQUESTS, **none})
+    parity(vmodel, params, prompts[0], "bfloat16", attn, attn_plains)
+    profile = decode_profile(vmodel, params, prompts[0])
+    first = first_layers(params, vcfg, f32_layers)
+    del params
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.float(), first)
+    del first
+    torch.cuda.empty_cache()
+    parity(build_model(dataclasses.replace(
+        vcfg, n_layers=f32_layers, dtype="float32"), device=vmodel.device),
+        params, tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                         prompts[0]), "float32", attn, attn_plains)
+    del params, prompts
+    torch.cuda.empty_cache()
+    return launches, profile
 
 
 # ---------------------------------------------------------------------------
@@ -2169,6 +2457,14 @@ def main() -> int:
     del params, prompts
     torch.cuda.empty_cache()
 
+    # 4d. the MLA serving path: deepseek-v2 at full width with 7 of its 60
+    # layers; 4e. the VLM serving path: llama-3.2-vision at full width
+    dcfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    mla_launches, mla_profile, absorb_profile = serve_mla(
+        dcfg, MLA_F32_LAYERS, get_config(MLA_ARCH).n_layers)
+    vlm_launches, vlm_profile = serve_vlm(get_config(VLM_ARCH),
+                                          VLM_F32_LAYERS)
+
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
     print("launch floor: " + json.dumps(
@@ -2251,12 +2547,16 @@ def main() -> int:
             ("decode_attention", decode, 24,
              [SERVE_BATCH, PROMPT + GEN + 8, cfg.n_heads, cfg.n_kv_heads,
               cfg.head_dim, mean_valid])):
-        # both attention serving paths: qwen3-4b and phi3.5-moe
+        # the attention serving paths: qwen3-4b, phi3.5-moe and the VLM's
+        # self layers (the same shapes as qwen3-4b's)
+        paths = {SERVE_ARCH: serve_launches[kname],
+                 MOE_ARCH: moe_launches[kname],
+                 VLM_ARCH: vlm_launches[kname]}
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": f"src/repro/kernels/{kname}.py:{line}",
-            "launches": serve_launches[kname] + moe_launches[kname],
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": max(attn_worst[kname], r["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2289,11 +2589,24 @@ def main() -> int:
     dec_shape = (SERVE_BATCH, mcfg.d_model, n_exp, top_k, "random")
     pre = routing_holds[pre_shape + ("bfloat16",)]
     dec = routing_holds[dec_shape + ("bfloat16",)]
+    # and at deepseek-v2's path shapes, E = 160, top-6
+    n_exp, top_k = dcfg.moe.n_experts, dcfg.moe.top_k
+    mla_shapes = {"prefill": (SERVE_BATCH * PROMPT, dcfg.d_model, n_exp,
+                              top_k, "random"),
+                  "decode_step": (SERVE_BATCH, dcfg.d_model, n_exp, top_k,
+                                  "random")}
+    mla_holds = {
+        key: dict({k: routing_holds[shape + ("bfloat16",)][k]
+                   for k in TIMES + ("bound_by", "three_call_ms")},
+                  shape=list(shape[:4]))
+        for key, shape in mla_shapes.items()}
+    paths = {MOE_ARCH: moe_launches["moe_routing"],
+             MLA_ARCH: mla_launches["moe_routing"]}
     rows.append({
         "name": "moe_routing", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_routing.cu",
         "replaces": "src/repro/kernels/moe_routing.py:21",
-        "launches": moe_launches["moe_routing"],
+        "launches": sum(paths.values()), "launches_by_path": paths,
         "max_abs_err": max(r["max_abs_err"] for r in routing_holds.values()),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
@@ -2301,11 +2614,16 @@ def main() -> int:
         "device_ms": pre["device_ms"], "shape": list(pre_shape[:4]),
         "dtype": "bfloat16",
         "decode_step": dict({k: dec[k] for k in TIMES + ("bound_by",)},
-                            shape=list(dec_shape[:4]))})
+                            shape=list(dec_shape[:4])),
+        MLA_ARCH: mla_holds})
     for line, key in ((profile_line, "decode_attention_share"),
                       (rwkv_profile, "wkv_share"),
-                      (moe_profile, "moe_routing_share")):
-        print(f"decode step {line['arch']}: " + json.dumps(
+                      (moe_profile, "moe_routing_share"),
+                      (mla_profile, "moe_routing_share"),
+                      (absorb_profile, "moe_routing_share"),
+                      (vlm_profile, "decode_attention_share")):
+        mode = f" ({line['mode']})" if "mode" in line else ""
+        print(f"decode step {line['arch']}{mode}: " + json.dumps(
             {k: line[k] for k in ("host_ms_per_step", "device_ms_per_step",
                                   "idle_share", key)}))
     print(json.dumps({"kernels": rows}))

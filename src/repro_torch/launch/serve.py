@@ -10,8 +10,11 @@ selection via Eq. 1-4 against the offline Configuration Dictionary).
 
 It runs on the card (the attention kernels, the WKV scan, the MoE router)
 unless ``--device cpu`` asks for the CPU (their plain versions).  The
-dense, RWKV and MoE (phi3.5-moe) families are ported; other families raise
-``NotImplementedError`` naming the slice they wait for.
+dense, RWKV, MoE (phi3.5-moe, and deepseek-v2 with MLA) and VLM
+(llama-3.2-vision, its vision embeddings a stub of 0.02 x a standard
+normal, as the JAX launcher makes them) families are ported; the hybrid
+and encoder-decoder families raise ``NotImplementedError`` naming the
+slice they wait for.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.core.engines import default_engines
 from repro_torch.core.estimator import candidate_order, estimate_matrix
 from repro_torch.core.job import Job
 from repro_torch.core.offline import characterize
+from repro_torch.models.common import dtype_of
 from repro_torch.models.registry import build_model
 from repro_torch.serving.engine import InferenceEngine
 
@@ -46,6 +50,14 @@ def place(cd, arch: str, rid: int) -> str:
     worker = WORKERS[order[0]] if order else "cloud-pod"
     ent = cd.optimal(engine_name, worker)
     return f"{worker} (c*={ent.mode}/r{ent.chips_per_replica})"
+
+
+def vision_embeds(cfg, batch: int, generator, device):
+    """The vision frontend's stub: 0.02 x a standard normal of [batch,
+    n_vision_tokens, d_model] from ``generator``, in the model's dtype."""
+    x = torch.randn((batch, cfg.vision.n_vision_tokens, cfg.d_model),
+                    generator=generator, device=device)
+    return (0.02 * x).to(dtype_of(cfg))
 
 
 def main(argv=None):
@@ -73,8 +85,12 @@ def main(argv=None):
         plan = place(cd, args.arch, rid)
         toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                              generator=gen, device=model.device)
+        batch = {"tokens": toks}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = vision_embeds(cfg, args.batch, gen,
+                                                   model.device)
         t0 = time.perf_counter()
-        out = eng.generate({"tokens": toks}, args.gen)
+        out = eng.generate(batch, args.gen)
         print(f"req {rid} -> {plan}: generated {out.shape[1]} tokens "
               f"x batch {out.shape[0]} in {time.perf_counter() - t0:.2f}s")
     s = eng.stats

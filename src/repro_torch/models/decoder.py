@@ -1,4 +1,4 @@
-# Port of repro/models/decoder.py: the grouped decoder stack on torch (kinds "dense", "moe" and "rwkv").
+# Port of repro/models/decoder.py: the grouped decoder stack on torch (kinds "dense", "moe" with or without MLA, "rwkv" and "cross").
 """Generic grouped decoder stack.
 
 Layers are described by a per-layer ``LayerSpec``; consecutive identical
@@ -6,11 +6,13 @@ specs form a ``Group`` whose params carry a leading ``n`` (layer) dimension,
 the same stacking as the JAX package, so its params map key for key.  Where
 JAX scans a group with ``lax.scan``, the port loops over its layers.
 
-The port runs kinds ``"dense"``, ``"moe"`` and ``"rwkv"`` in prefill and
-decode.  The other kinds (hymba, cross, encdec_dec), MLA and
-``mode="train"`` raise ``NotImplementedError`` naming the slice they wait
-for.  The JAX stack's ``constrain_seq`` is a no-op off a device mesh and
-waits for the sharding slice.
+The port runs kinds ``"dense"``, ``"moe"`` (MLA attention too, in both
+``absorb_mla`` modes), ``"rwkv"`` and ``"cross"`` (the VLM's gated
+cross-attention layers over a context input) in prefill and decode.  The
+other kinds (hymba, encdec_dec) and ``mode="train"`` raise
+``NotImplementedError`` naming the slice they wait for.  The JAX stack's
+``constrain_seq`` is a no-op off a device mesh and waits for the sharding
+slice.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from repro_torch.models.common import rms_norm
 
 _LATER = {
     "hymba": "the Mamba/hymba slice",
-    "cross": "the cross-attention/VLM slice",
     "encdec_dec": "the encoder-decoder slice",
 }
 
@@ -80,12 +81,10 @@ def _check_ported(spec: LayerSpec):
     if spec.kind in _LATER:
         raise NotImplementedError(
             f"layer kind {spec.kind!r} waits for {_LATER[spec.kind]}")
-    if spec.mla:
-        raise NotImplementedError("MLA attention waits for the MLA slice")
 
 
 # ----------------------------------------------------------------------------
-# per-group init / forward (kinds "dense", "moe" and "rwkv")
+# per-group init / forward (kinds "dense", "moe", "rwkv" and "cross")
 
 
 def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
@@ -95,9 +94,16 @@ def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
         return {"ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
                 **layers.init_rwkv_layer(generator, cfg, dtype, device, lead),
                 "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device)}
+    if g.spec.kind == "cross":
+        attn = layers.init_cross_attention(generator, cfg, dtype, True,
+                                           device, lead)
+    elif g.spec.mla:
+        attn = layers.init_mla(generator, cfg, dtype, device, lead)
+    else:
+        attn = layers.init_attention(generator, cfg, dtype, device, lead)
     p = {
         "ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
-        "attn": layers.init_attention(generator, cfg, dtype, device, lead),
+        "attn": attn,
         "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device),
     }
     if g.spec.kind == "moe":     # the router stays f32 (init_moe)
@@ -108,17 +114,23 @@ def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
     return p
 
 
-def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, dtype,
-                      device):
+def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
+                      dtype, device):
     _check_ported(g.spec)
+    lead = (g.n,)
     if g.spec.kind == "rwkv":
-        return layers.init_rwkv_cache(cfg, batch, dtype, device, (g.n,))
+        return layers.init_rwkv_cache(cfg, batch, dtype, device, lead)
+    if g.spec.kind == "cross":    # sized by the context, not the buffer
+        kv = layers.init_attn_cache(cfg, batch, ctx_len, dtype, device, lead)
+        return {"ck": kv["k"], "cv": kv["v"]}
     buf = min(buf_len, g.spec.window) if g.spec.window else buf_len
-    return layers.init_attn_cache(cfg, batch, buf, dtype, device, (g.n,))
+    if g.spec.mla:
+        return layers.init_mla_cache(cfg, batch, buf, dtype, device, lead)
+    return layers.init_attn_cache(cfg, batch, buf, dtype, device, lead)
 
 
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
-                   pos):
+                   pos, ctx=None, absorb_mla=False):
     if spec.kind == "rwkv":
         cache = cache or {}
         h, tm_cache = layers.rwkv_time_mix(
@@ -129,10 +141,22 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
             p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps), mode=mode,
             cache=cache.get("cm_shift"))
         return x + h, dict(tm_cache, cm_shift=cm_shift)
+    if spec.kind == "cross":      # residuals gated by tanh(gate)
+        h, c_cache = layers.cross_sublayer(
+            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode,
+            cache=cache, ctx=ctx)
+        x = x + torch.tanh(p["attn"]["gate_attn"]) * h
+        h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+        return x + torch.tanh(p["attn"]["gate_ffn"]) * h, c_cache
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, a_cache = layers.attn_sublayer(p["attn"], cfg, xin, mode=mode,
-                                      cache=cache, pos=pos,
-                                      window=spec.window)
+    if spec.mla:
+        h, a_cache = layers.mla_sublayer(p["attn"], cfg, xin, mode=mode,
+                                         cache=cache, pos=pos,
+                                         absorb=absorb_mla)
+    else:
+        h, a_cache = layers.attn_sublayer(p["attn"], cfg, xin, mode=mode,
+                                          cache=cache, pos=pos,
+                                          window=spec.window)
     x = x + h
     xin = rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec.kind == "moe":
@@ -153,24 +177,21 @@ def init_decoder(generator, cfg: ModelConfig, device=None):
 
 def init_decoder_cache(cfg: ModelConfig, batch, buf_len, ctx_len=0,
                        device=None):
-    del ctx_len  # cross-attention caches wait for their slice
     dtype = common.dtype_of(cfg)
-    return [_init_group_cache(cfg, g, batch, buf_len, dtype, device)
+    return [_init_group_cache(cfg, g, batch, buf_len, ctx_len, dtype, device)
             for g in build_layout(cfg)]
 
 
 def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
-                  ctx=None):
+                  ctx=None, absorb_mla=False):
     """Run all layer groups.  x: [B, S, D] -> ([B, S, D], new_caches).
 
-    Prefill produces each group's cache stacked over its layers; decode
-    writes into ``caches`` in place and returns them."""
+    Prefill produces each group's cache stacked over its layers (a cross
+    layer's from ``ctx``); decode writes into ``caches`` in place and
+    returns them (a cross layer reads its cache, and ``ctx`` is None)."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(
             f"mode {mode!r}: training waits for the training slice")
-    if ctx is not None:
-        raise NotImplementedError("a context input (cross-attention) waits "
-                                  "for the cross-attention/VLM slice")
     groups = build_layout(cfg)
     caches = caches if caches is not None else [None] * len(groups)
     new_caches = []
@@ -181,7 +202,8 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
             x, c = _layer_forward(
                 tree_map(lambda t: t[i], gparams), cfg, g.spec, x, mode=mode,
                 cache=(None if gcache is None
-                       else tree_map(lambda t: t[i], gcache)), pos=pos)
+                       else tree_map(lambda t: t[i], gcache)), pos=pos,
+                ctx=ctx, absorb_mla=absorb_mla)
             produced.append(c)
         new_caches.append(gcache if gcache is not None else tree_map(
             lambda *ts: torch.stack(ts), *produced))

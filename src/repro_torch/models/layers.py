@@ -1,11 +1,16 @@
-# Port of repro/models/layers.py: the GQA self-attention, MoE FFN and RWKV6 sublayers on torch; the MoE router and the WKV recurrence run on CUDA kernels.
-"""The GQA self-attention sublayer (dense and MoE decoders and, in later
-slices, the VLM and hybrid stacks), with its KV cache; the MoE FFN
-(GShard-style capacity dispatch); and the RWKV6 (Finch) time- and
+# Port of repro/models/layers.py: the GQA self-attention, cross-attention, MLA, MoE FFN and RWKV6 sublayers on torch; the MoE router and the WKV recurrence run on CUDA kernels.
+"""The GQA self-attention sublayer (dense, MoE and VLM self layers), with
+its KV cache; the cross-attention sublayer (the VLM's gated image layers);
+MLA, multi-head latent attention (deepseek-v2), with its latent cache; the
+MoE FFN (GShard-style capacity dispatch); and the RWKV6 (Finch) time- and
 channel-mix sublayers, with their recurrent cache.
 
     init_attention(generator, cfg, dtype) -> params
     attn_sublayer(params, cfg, x, *, mode, cache, pos, window) -> (y, cache)
+    init_cross_attention(generator, cfg, dtype, gated) -> params
+    cross_sublayer(params, cfg, x, *, mode, cache, ctx) -> (y, {"ck", "cv"})
+    init_mla(generator, cfg, dtype) -> params
+    mla_sublayer(params, cfg, x, *, mode, cache, pos, absorb) -> (y, cache)
     init_moe(generator, cfg, dtype) -> {"router" (f32), "wi", "wg", "wo"}
     moe_ffn(params, cfg, x) -> y
     init_rwkv_layer(generator, cfg, dtype) -> {"tm", "cm"}
@@ -13,23 +18,30 @@ channel-mix sublayers, with their recurrent cache.
     rwkv_channel_mix(params, cfg, x, *, mode, cache) -> (y, cm_shift)
 
 ``mode``: "prefill" | "decode" ("train" waits for the training slice);
-``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), or the RWKV cache
-{"state" [B, H, hd, hd] f32, "tm_shift", "cm_shift" [B, D]}; ``pos``: int,
-the absolute position of the incoming token (decode).
+``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), the cross cache
+{"ck", "cv"} [B, S_ctx, K, hd], the MLA latent cache {"ckv" [B, buf, R],
+"krope" [B, buf, rope]}, or the RWKV cache {"state" [B, H, hd, hd] f32,
+"tm_shift", "cm_shift" [B, D]}; ``pos``: int, the absolute position of the
+incoming token (decode); ``ctx``: the vision context [B, S_ctx, D]
+(prefill; decode reads the cross cache instead).
 
 Caches are written in place in decode (where JAX returns updated buffers):
-the attention cache at the token's slot, the RWKV state by the ``rwkv_scan``
-kernel itself (``state_out=state``) and the two token shifts by a copy.  The
-WKV recurrence, which the JAX layer runs as ``common.chunked_time_scan`` (a
-remat device for training), runs on ``kernels.rwkv_scan``.  The MoE
-router (the JAX ``_route``/``_route_grouped``: logits, softmax, top-k mask
-and renormalized gates) runs on ``kernels.moe_routing``; the expert products
-stay ``torch.einsum``, plain large products that the JAX package leaves to
-XLA.  The JAX package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN``
-switches and the MoE sharding constraints (``constrain_moe_groups``,
+the attention and latent caches at the token's slot, the RWKV state by the
+``rwkv_scan`` kernel itself (``state_out=state``) and the two token shifts
+by a copy; the cross cache is read, never written.  The WKV recurrence,
+which the JAX layer runs as ``common.chunked_time_scan`` (a remat device
+for training), runs on ``kernels.rwkv_scan``.  The MoE router (the JAX
+``_route``/``_route_grouped``: logits, softmax, top-k mask and renormalized
+gates) runs on ``kernels.moe_routing``; the expert products stay
+``torch.einsum``, plain large products that the JAX package leaves to XLA.
+Cross-attention and MLA attention take the XLA-path ports of
+``common.attention`` (their shapes do not fit the attention kernels), as
+the JAX package computes them outside any Pallas kernel.  The JAX
+package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN`` switches and
+the MoE sharding constraints (``constrain_moe_groups``,
 ``constrain_moe_expert``, the identity off a device mesh) wait for the
-sharding slice.  Cross-attention, MLA and Mamba sublayers wait for their
-slices (``decoder.py`` raises for them).
+sharding slice.  The Mamba branch waits for its slice (``decoder.py``
+raises for it).
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.models import common
 from repro_torch.models.common import (apply_rope, attention, dense_init,
-                                       head_rms_norm, rope_freqs)
+                                       head_rms_norm, rms_norm, rope_freqs)
 
 
 def _cache_write(buf, update, idx):
@@ -127,6 +139,158 @@ def attn_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos, window):
     H, hd = cfg.n_heads, cfg.head_dim
     y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, new_cache
+
+
+# =============================================================================
+# Cross-attention sublayer (the VLM's image layers)
+# =============================================================================
+
+
+def init_cross_attention(generator, cfg: ModelConfig, dtype, gated: bool,
+                         device=None, lead=()):
+    p = init_attention(generator, cfg, dtype, device, lead)
+    if gated:  # llama-3.2-vision style tanh gates, 0 at init
+        p["gate_attn"] = torch.zeros(tuple(lead), dtype=dtype, device=device)
+        p["gate_ffn"] = torch.zeros(tuple(lead), dtype=dtype, device=device)
+    return p
+
+
+def cross_sublayer(p, cfg: ModelConfig, x, *, mode, cache, ctx):
+    """Cross-attention: queries from x, keys and values from ``ctx``.
+    Prefill computes them from ``ctx`` and returns them as the cache;
+    decode reads them from the cache (``ctx`` is static across steps)."""
+    B, S, D = x.shape
+    q = _project(x, p["wq"])
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"mode {mode!r}: training waits for the training slice")
+    if mode == "decode" and cache is not None:
+        ck, cv = cache["ck"], cache["cv"]
+        new_cache = cache
+    else:
+        ck = _project(ctx, p["wk"])
+        cv = _project(ctx, p["wv"])
+        if cfg.qk_norm:
+            ck = head_rms_norm(ck, p["k_norm"], cfg.norm_eps)
+        new_cache = {"ck": ck, "cv": cv}
+    out = attention(cfg, q, ck, cv, causal=False, window=None)
+    H, hd = cfg.n_heads, cfg.head_dim
+    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D), new_cache
+
+
+# =============================================================================
+# MLA: multi-head latent attention (deepseek-v2)
+# =============================================================================
+
+
+def init_mla(generator, cfg: ModelConfig, dtype, device=None, lead=()):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(dtype=dtype, device=device, lead=lead)
+
+    def zeros(n):
+        return torch.zeros(tuple(lead) + (n,), dtype=dtype, device=device)
+
+    return {
+        "wq_a": dense_init(generator, (D, m.q_lora_rank), in_axis=0, **kw),
+        "q_norm": zeros(m.q_lora_rank),
+        "wq_b": dense_init(generator, (m.q_lora_rank, H, qk_hd), in_axis=0,
+                           **kw),
+        "wkv_a": dense_init(generator,
+                            (D, m.kv_lora_rank + m.qk_rope_head_dim),
+                            in_axis=0, **kw),
+        "kv_norm": zeros(m.kv_lora_rank),
+        "wk_b": dense_init(generator, (m.kv_lora_rank, H, m.qk_nope_head_dim),
+                           in_axis=0, **kw),
+        "wv_b": dense_init(generator, (m.kv_lora_rank, H, m.v_head_dim),
+                           in_axis=0, **kw),
+        "wo": dense_init(generator, (H, m.v_head_dim, D), in_axis=-1, **kw),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch, buf_len, dtype, device=None,
+                   lead=()):
+    m = cfg.mla
+    shape = tuple(lead) + (batch, buf_len)
+    return {"ckv": torch.zeros(shape + (m.kv_lora_rank,), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros(shape + (m.qk_rope_head_dim,), dtype=dtype,
+                                 device=device)}
+
+
+def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
+                 absorb: bool = False):
+    """MLA with a compressed latent cache.
+
+    ``absorb=False`` (the paper-faithful baseline): decode re-expands k and
+    v from the whole latent buffer through wk_b and wv_b each step.
+    ``absorb=True``: wk_b is folded into the query and wv_b into the output
+    projection, so decode attends in the rank-R latent space as MQA (q and
+    k of R + rope dims, v of R).  As in the JAX layer, the scores are then
+    divided by sqrt(R + rope), q's width there, not sqrt(nope + rope): the
+    two modes are not the same function."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    R = m.kv_lora_rank
+
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = _project(q, p["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = x @ p["wkv_a"]
+    ckv = rms_norm(kv_a[..., :R], p["kv_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., R:]
+
+    if mode == "decode":
+        positions = torch.full((S,), int(pos), dtype=torch.int32,
+                               device=x.device)
+    else:
+        positions = torch.arange(S, device=x.device)
+    cos, sin = rope_freqs(rope_d, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+    # k_rope is one head shared by all query heads
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if mode == "decode":
+        ckv_full = _cache_write(cache["ckv"], ckv, pos)
+        krope_full = _cache_write(cache["krope"], k_rope, pos)
+        new_cache = {"ckv": ckv_full, "krope": krope_full}
+        k_valid, causal = pos + 1, False
+    elif mode == "prefill":
+        ckv_full, krope_full = ckv, k_rope
+        new_cache = {"ckv": ckv, "krope": k_rope}
+        k_valid, causal = None, True
+    else:
+        raise NotImplementedError(
+            f"mode {mode!r}: training waits for the training slice")
+
+    if absorb and mode == "decode":
+        # fold wk_b into q: q_lat [B, 1, H, R]; attend in the latent space
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+        q_cat = torch.cat([q_lat, q_rope], dim=-1)
+        k_cat = torch.cat([ckv_full, krope_full],
+                          dim=-1)[:, :, None, :]     # MQA: one kv head
+        out_lat = attention(cfg, q_cat, k_cat, ckv_full[:, :, None, :],
+                            causal=False, k_valid=k_valid)
+        # out in the latent space, expanded through wv_b, then wo (the JAX
+        # "bshr,rhv,hvd->bsd", contracted pairwise in that order)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, p["wv_b"])
+        return out.reshape(B, S, H * vd) @ p["wo"].reshape(H * vd, D), \
+            new_cache
+
+    Sk = ckv_full.shape[1]
+    k_nope = _project(ckv_full, p["wk_b"])
+    v = _project(ckv_full, p["wv_b"])
+    k = torch.cat([k_nope, krope_full[:, :, None, :].expand(B, Sk, H,
+                                                            rope_d)], dim=-1)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention(cfg, q_cat, k, v, causal=causal, k_valid=k_valid)
+    return out.reshape(B, S, H * vd) @ p["wo"].reshape(H * vd, D), new_cache
 
 
 # =============================================================================

@@ -16,9 +16,15 @@ buffers instead).  ``init_params`` draws from
 the JAX initialisers' distributions, not their values; to run the JAX
 package's params, convert them with ``models.convert.from_jax``.
 
+``prefill`` and ``decode`` take ``absorb_mla`` (MLA models: decode attends
+in the latent space; the default False is the paper-faithful baseline).
+A VLM's prefill batch carries ``vision_embeds`` [B, n_vision_tokens, D],
+the context of its cross layers; decode reads their caches instead, which
+``init_cache`` sizes to ``n_vision_tokens``.
+
 The model runs on the card unless ``device="cpu"`` is asked for.  The
-dense, MoE (without MLA) and RWKV families run; the encoder-decoder family
-and ``train_loss`` wait for their slices.
+dense, MoE (MLA too), RWKV and VLM families run; the hybrid (hymba) and
+encoder-decoder families and ``train_loss`` wait for their slices.
 """
 
 from __future__ import annotations
@@ -58,17 +64,19 @@ def _build_decoder_model(cfg: ModelConfig, device: torch.device) -> Model:
     def train_loss(params, batch):
         raise NotImplementedError("train_loss waits for the training slice")
 
-    def prefill(params, batch):
+    def prefill(params, batch, absorb_mla=False):
         x = common.embed(params["embed"], cfg, batch["tokens"])
         x, caches = decoder.decoder_stack(params, cfg, x, mode="prefill",
-                                          ctx=_ctx_of(cfg, batch))
+                                          ctx=_ctx_of(cfg, batch),
+                                          absorb_mla=absorb_mla)
         logits = common.unembed(params["embed"], cfg, x[:, -1:, :])
         return logits[:, 0, :], caches
 
-    def decode(params, caches, batch):
+    def decode(params, caches, batch, absorb_mla=False):
         x = common.embed(params["embed"], cfg, batch["token"])
         x, caches = decoder.decoder_stack(params, cfg, x, mode="decode",
-                                          caches=caches, pos=batch["pos"])
+                                          caches=caches, pos=batch["pos"],
+                                          ctx=None, absorb_mla=absorb_mla)
         logits = common.unembed(params["embed"], cfg, x)
         return logits[:, 0, :], caches
 

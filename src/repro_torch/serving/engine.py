@@ -50,8 +50,10 @@ class InferenceEngine:
         self.stats = EngineStats()
 
     def generate(self, batch: dict, n_tokens: int, generator=None):
-        """batch: {"tokens": [B, S] int} on the model's device.  Returns
-        tokens [B, n_tokens] (int32)."""
+        """batch: {"tokens": [B, S] int} on the model's device, and for a
+        VLM ``"vision_embeds"`` [B, n_vision_tokens, D] in the model's dtype,
+        which goes to ``prefill`` with the tokens.  Returns tokens
+        [B, n_tokens] (int32)."""
         tokens = batch["tokens"]
         B, prompt_len = tokens.shape
         t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""The port's dense decoder models against the JAX package on the CPU.
+"""The port's decoder models against the JAX package on the CPU.
 
 Params come from the JAX package's ``init_params`` and are carried across
 with ``convert.from_jax``; tokens are drawn from a numpy seed.  Both sides
@@ -25,7 +25,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.serving.kvcache import pad_cache
 
 DENSE = ["qwen3-4b", "qwen3-32b", "gemma-2b", "h2o-danube-1.8b"]
-PORTED = DENSE + ["rwkv6-1.6b"]
+PORTED = DENSE + ["rwkv6-1.6b", "deepseek-v2-236b", "llama-3.2-vision-11b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -68,7 +68,8 @@ def test_from_jax_round_trip(arch, dtype):
     assert jl.keys() == tl.keys()
     for path, a in jl.items():
         t = tl[path]
-        assert t.device.type == "cpu" and str(t.dtype).endswith(dtype)
+        want = "float32" if path[-1] == "router" else dtype  # f32 router
+        assert t.device.type == "cpu" and str(t.dtype).endswith(want), path
         np.testing.assert_array_equal(to_numpy(t).view(np.uint8),
                                       np.asarray(a).view(np.uint8))
     # the port's own init has the same keys, shapes and dtypes
@@ -247,9 +248,7 @@ def test_rwkv_decode_writes_its_cache_in_place():
         assert not torch.equal(out[0][key], old), key
 
 
-@pytest.mark.parametrize("arch,slice_", [
-    ("hymba-1.5b", "hymba slice"), ("llama-3.2-vision-11b", "VLM slice"),
-    ("deepseek-v2-236b", "MLA slice")])
+@pytest.mark.parametrize("arch,slice_", [("hymba-1.5b", "hymba slice")])
 def test_families_of_later_slices_raise(arch, slice_):
     model = build_model(t_reduced(t_get_config(arch)), device="cpu")
     with pytest.raises(NotImplementedError, match=slice_):

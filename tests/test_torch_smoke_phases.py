@@ -1,0 +1,102 @@
+"""``chip_smoke.py``'s MLA and VLM serving phases (4d, 4e) rehearsed on the
+CPU at the reduced configs' size.
+
+The phases are the functions the card run calls (``serve_mla``,
+``serve_vlm``), with the serving sizes cut (2 requests of batch 2 x 16 +
+4 tokens) and the CUDA calls of the harness made no-ops.  On CPU tensors
+the kernel wrappers run their plain versions and count nothing, so each
+wrapper is replaced by one that counts its calls: the phases' own launch
+checks (the router alone on the MLA path; flash in prefill and decode
+attention in decode on the VLM's self layers, none on its cross layers)
+and their parity holds then run as on the card."""
+
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.base import reduced
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import moe_routing as mr
+from repro_torch.kernels import rwkv_scan as rs
+from repro_torch.models import common, layers
+
+ROOT_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+_spec = importlib.util.spec_from_file_location("chip_smoke_phases",
+                                               ROOT_SMOKE)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def counting(fn):
+    def counted(*args, **kw):
+        counted.launches += 1
+        return fn(*args, **kw)
+    counted.launches = 0
+    return counted
+
+
+@pytest.fixture
+def rehearsal(monkeypatch):
+    """Small serving sizes, no-op CUDA calls, counting wrappers on every
+    name the model and the harness look the kernels up by."""
+    for name, value in (("REQUESTS", 2), ("SERVE_BATCH", 2), ("PROMPT", 16),
+                        ("GEN", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    counted = {}
+    for module, name, homes in (
+            (fa, "flash_attention", [common]),
+            (da, "decode_attention", [common]),
+            (mr, "moe_routing", [layers]),
+            (rs, "rwkv_scan", [layers])):
+        fn = counting(getattr(module, name))
+        for home in [module] + homes:
+            monkeypatch.setattr(home, name, fn)
+        counted[name] = fn
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield counted
+    torch.set_num_threads(threads)
+
+
+def test_mla_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 4d on the reduced deepseek-v2 in bf16 (3 layers; f32 parity on
+    the first 2): the router launches 3 x 2 times in prefill and 3 x 3 x 2
+    in decode, nothing else; every parity line holds, and the absorbed
+    decode is held to the expanded one at its score scale."""
+    cfg = dataclasses.replace(reduced(get_config("deepseek-v2-236b")),
+                              n_layers=3, dtype="bfloat16")
+    launches, expanded, absorbed = chip_smoke.serve_mla(cfg, 2, 60,
+                                                        device="cpu")
+    assert launches == {"moe_routing": 24, "flash_attention": 0,
+                        "decode_attention": 0, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    for tag in ("serving ", "routing_parity ", "moe_parity ",
+                "absorb_scales ", "absorb_parity ", "decode_profile "):
+        assert tag in out, tag
+    assert out.count("moe_parity ") == out.count("absorb_parity ") == 2
+    assert "depth cut to 3" in out
+    assert (expanded["mode"], absorbed["mode"]) == ("expanded", "absorb_mla")
+
+
+def test_vlm_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 4e on the reduced llama-3.2-vision in bf16 (5 layers, cross
+    layers at 0, 2 and 4; f32 parity on the first 3): flash launches on the
+    2 self layers, 2 x 2 in prefill, decode attention 2 x 3 x 2 in decode,
+    the cross layers on neither; the gates set on all 3 cross layers."""
+    cfg = dataclasses.replace(reduced(get_config("llama-3.2-vision-11b")),
+                              n_layers=5, dtype="bfloat16")
+    launches, profile = chip_smoke.serve_vlm(cfg, 3, device="cpu")
+    assert launches == {"flash_attention": 4, "decode_attention": 12,
+                        "moe_routing": 0, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert "(2 self-attention, 3 cross-attention)" in out
+    assert out.count("parity ") == 2 and "decode_profile " in out
+    assert profile["arch"] == cfg.name
