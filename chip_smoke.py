@@ -25,13 +25,17 @@ Phases, in order; any failure exits non-zero:
        and -0.0 urgencies, K > 1 admission masks; exactly;
    (c) ``flash_attention`` at the serving shape [B, S, H, K, hd] =
        [4, 1024, 32, 8, 128] causal, a ragged danube-like shape (S = 1,000,
-       hd 80, window 256) and a gemma-like MQA shape (hd 256, K = 1), the
-       profiler showing the tensor-core kernel for bf16 and the FMA kernel
-       for f32, and
+       hd 80, window 256), a gemma-like MQA shape (hd 256, K = 1), hymba's
+       prefill [4, 1024, 25, 5, 64] (G = 5) windowed at 1,024 and
+       seamless-m4t's encoder and cross prefill [4, 1024, 16, 16, 64]
+       non-causal, the profiler showing the tensor-core kernel for bf16 and
+       the FMA kernel for f32, and
    (d) ``decode_attention`` on the serving buffer [4, 1064, 32, 8, 128] at
        k_valid 1, 1024 (the end of a split of ``plan_splits``), 1025 and
        1064, a ragged hd-80 buffer, an hd-256 MQA buffer and G = 5
-       (25 query over 5 kv heads); both in f32 (within 2e-5, TF32 off) and
+       (25 query over 5 kv heads: a ragged buffer, hymba's full 1,024-slot
+       ring and its global layers' buffer just after the prompt); both in
+       f32 (within 2e-5, TF32 off) and
        bf16 (within one bf16 ulp, 2**-7 relative), each beside SDPA as the
        library yardstick; three calls in a row bit-identical (the merge of
        the splits runs in split order) with the ticket counters back at 0,
@@ -62,7 +66,8 @@ Phases, in order; any failure exits non-zero:
    ``energy_weight=0.5``, (e) under ``HierarchicalSynergAI`` over three
    regions of the same fleet on ``regional_scenario``.  Each run counts its
    kernel launches (the counts set to 0 just before it), must give the same
-   ``JobResult``s as the same run on the CPU, and is set beside the default
+   ``JobResult``s as the same run on the CPU (made in a forked child while
+   the card run goes on, ``forked``), and is set beside the default
    numpy ``SynergAI()``; the resident runs also print their per-tick
    transfer counters (held equal to the CPU run's, ``profile_reclaims``
    among them) and their edge energy (held equal too); (d) prints its
@@ -136,12 +141,31 @@ Phases, in order; any failure exits non-zero:
    layers' shapes take the XLA-path attention), no routing or WKV launch;
    its parity in bf16 on all 40 layers and in f32 on the first 10 (two
    cross layers among them), and its decode-step profile;
+4f. the hybrid family: hymba-1.5b at full width, all 32 layers (attention
+   beside a Mamba branch in each; 3 global layers, 29 windowed at 1,024
+   with a 1,024-slot ring), the same 4 requests; the attention launches
+   are counted from 0 and must be 32 x 4 flash in prefill and 32 x 31 x 4
+   decode in decode, no routing or WKV launch (the Mamba scan is PyTorch,
+   as it is ``lax.scan`` in the JAX package); its parity in bf16 and in
+   f32 on all 32 layers (bf16 within the plain bf16 run's own distance
+   from the f32 run where that is above 3e-2: this random-weight model's
+   bf16 noise is), its decode-step profile and a prefill's profile with
+   the Mamba recurrence's share of the device time;
+4g. the encoder-decoder family: seamless-m4t-medium at full width, 12
+   encoder and 12 decoder layers, ``audio_embeds`` [4, 1,024, 1,024] of
+   0.02 x a standard normal, the same 4 requests; the prefill must launch
+   flash 36 x 4 times, 24 x 4 non-causal (the encoder's and the cross
+   layers') and 12 x 4 causal (the self layers'), and decode must launch
+   decode attention 12 x 31 x 4 times (the cross layers' decode takes the
+   XLA-path attention), no routing or WKV launch; its parity in bf16 and
+   f32 at full depth and its decode-step profile;
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
    from ``nvidia-smi``, then the result.
 
-It needs a CUDA card and a checkout (``src/repro_torch`` beside it), and
+Each phase prints its seconds on a line of its own (``phase ...``).  It
+needs a CUDA card and a checkout (``src/repro_torch`` beside it), and
 imports nothing of JAX or of the JAX package.
 """
 
@@ -178,16 +202,24 @@ REPS = 25                 # timed samples per kernel (median reported)
 BATCH = 10                # launches per timed sample
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms")
 
-# the attention kernels (B, S, H, K, hd, window): the serving shape, a
-# ragged danube-like shape, a gemma-like MQA shape
-FLASH_HOLDS = ((4, 1024, 32, 8, 128, None), (4, 1000, 32, 8, 80, 256),
-               (2, 2048, 8, 1, 256, None))
+# the attention kernels (B, S, H, K, hd, window, causal): the serving
+# shape, a ragged danube-like shape, a gemma-like MQA shape, hymba's prefill
+# (G = 5, windowed at 1,024) and seamless-m4t's encoder and cross prefill
+# (non-causal)
+FLASH_HOLDS = ((4, 1024, 32, 8, 128, None, True),
+               (4, 1000, 32, 8, 80, 256, True),
+               (2, 2048, 8, 1, 256, None, True),
+               (4, 1024, 25, 5, 64, 1024, True),
+               (4, 1024, 16, 16, 64, None, False))
 # (B, S, H, K, hd, k_valid): the serving buffer (prompt 1,024 + 32 + 8)
 # cold, just after the prompt and full; a ragged hd-80 buffer; hd-256 MQA;
-# G = 5; the serving buffer with k_valid at the end of a split (1,024)
+# G = 5: a ragged buffer, hymba's full ring and its global layers' buffer
+# just after the prompt; last, the serving buffer with k_valid at the end
+# of a split (1,024)
 DECODE_HOLDS = ((4, 1064, 32, 8, 128, 1), (4, 1064, 32, 8, 128, 1025),
                 (4, 1064, 32, 8, 128, 1064), (4, 1000, 32, 8, 80, 777),
                 (2, 2056, 8, 1, 256, 2050), (2, 1000, 25, 5, 64, 999),
+                (4, 1024, 25, 5, 64, 1024), (4, 1064, 25, 5, 64, 1025),
                 (4, 1064, 32, 8, 128, 1024))
 DECODE_REPEATS = 3        # calls that must agree bit for bit
 # (rtol, atol) of a kernel against its plain version: the same f32 math
@@ -223,6 +255,9 @@ MLA_ARCH, MLA_LAYERS, MLA_F32_LAYERS = "deepseek-v2-236b", 7, 2
 # cross layer's gates set to VLM_GATE, and its first 10 layers (two cross
 # layers among them), in f32, for the f32 parity
 VLM_ARCH, VLM_GATE, VLM_F32_LAYERS = "llama-3.2-vision-11b", 0.5, 10
+# the hybrid and encoder-decoder serving cells, nothing cut (f32 parity on
+# every layer too)
+HYMBA_ARCH, ENCDEC_ARCH = "hymba-1.5b", "seamless-m4t-medium"
 # the router (T, D, E, top_k, case): the phi3.5 prefill (4 x 1,024 tokens),
 # one decode step, one token, a ragged shape, the deepseek-v2 prefill and
 # decode step, a probability that underflows (one logit leads by > 110) and
@@ -743,20 +778,21 @@ def scales(cd, rc):
     return json.dumps(profile_overlay(cd, rc.profile).scale, sort_keys=True)
 
 
-def hold_loop(label, cd, rcs, card_caches, online):
-    """The re-characterizer of the card run against the CPU run's: the same
-    refreshes and bit-equal overlay scales; an online run must have
-    refreshed and reclaimed rows on the card.  ``rcs`` maps run -> its own
-    re-characterizer (``None`` for a stale run)."""
+def hold_loop(label, cd, rcs, card_caches, online, cpu):
+    """The re-characterizer of the card run against the CPU run's (``cpu``,
+    the report of ``cpu_reference``): the same refreshes and bit-equal
+    overlay scales; an online run must have refreshed and reclaimed rows on
+    the card.  ``rcs`` maps run -> its own re-characterizer (``None`` for a
+    stale run)."""
     if rcs["card"] is None:
         return {}
-    card, cpu = rcs["card"], rcs["cpu"]
+    card = rcs["card"]
     if len({id(rc) for rc in rcs.values()}) != len(rcs):
         raise SystemExit(f"FAIL {label}: runs share a re-characterizer")
-    if card.refreshes != cpu.refreshes:
+    if card.refreshes != cpu["refreshes"]:
         raise SystemExit(f"FAIL {label}: {card.refreshes} refreshes on the "
-                         f"card, {cpu.refreshes} in the device='cpu' run")
-    if scales(cd, card) != scales(cd, cpu):
+                         f"card, {cpu['refreshes']} in the device='cpu' run")
+    if scales(cd, card) != cpu["scales"]:
         raise SystemExit(f"FAIL {label}: overlay scales differ from the "
                          "device='cpu' run")
     reclaims = sum(c.profile_reclaims for c in card_caches)
@@ -764,11 +800,84 @@ def hold_loop(label, cd, rcs, card_caches, online):
         raise SystemExit(f"FAIL {label}: {card.refreshes} refreshes and "
                          f"{reclaims} profile reclaims: the refresh path did "
                          "not run")
-    return {"refreshes": {"card": card.refreshes, "cpu": cpu.refreshes,
+    return {"refreshes": {"card": card.refreshes, "cpu": cpu["refreshes"],
                           "numpy": rcs["numpy"].refreshes},
             "last_reason": card.last_reason,
             "overlay_scales_equal_to_cpu_run": True,
             "overlay_engines": len(json.loads(scales(cd, card)))}
+
+
+CACHE_COUNTERS = ("ticks", "rows_uploaded", "bytes_to_device", "fail_masks",
+                  "flushes", "profile_reclaims")
+
+
+def forked(fn, timeout=900):
+    """Start ``fn()`` in a forked child while the caller goes on; returns a
+    function that waits for its result (picklable), at most ``timeout``
+    seconds, and fails if the child failed.  The child must not touch the
+    card: it runs a CPU reference run, on one thread, its cyclic garbage
+    collector off (the parent's CUDA tensors are never freed there), and
+    leaves through ``os._exit``."""
+    import gc
+    import multiprocessing
+    import torch
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+
+    def child():
+        gc.disable()
+        torch.set_num_threads(1)
+        try:
+            send.send(("ok", fn()))
+        except BaseException as e:   # reported, and the parent fails
+            send.send(("error", f"{type(e).__name__}: {e}"))
+
+    sys.stdout.flush()
+    sys.stderr.flush()
+    proc = ctx.Process(target=child, daemon=True)
+    proc.start()
+    send.close()
+
+    def wait():
+        if not recv.poll(timeout):
+            proc.kill()
+            proc.join()
+            raise SystemExit(f"FAIL: a CPU reference run took over "
+                             f"{timeout} s")
+        try:
+            kind, value = recv.recv()
+        except EOFError:
+            kind, value = "error", "the child ended without a result"
+        proc.join()
+        if kind != "ok":
+            raise SystemExit(f"FAIL: a CPU reference run failed: {value} "
+                             f"(exit code {proc.exitcode})")
+        return value
+    return wait
+
+
+def cpu_reference(cd, jobs, fleet, serving, policy, degradations, rc):
+    """The run of ``policy`` on the kernels' plain versions (a forked
+    child's work): what the checks compare with the card run, as plain
+    data: the canonical results, wall seconds, edge energy, the launches it
+    made (none, if the plain versions were used), each score cache's
+    counters, and its re-characterizer's refreshes and overlay scales."""
+    from repro_torch.core.energy import edge_energy
+    from repro_torch.kernels import scheduler_score as ss
+    from repro_torch.launch.schedule import caches_of
+    wrappers = (ss.scheduler_score, ss.scheduler_score_v2, ss.tick_score,
+                ss.greedy_place)
+    before = sum(w.launches for w in wrappers)
+    res, _, wall, cluster = drive(cd, jobs, fleet, serving, policy,
+                                  degradations)
+    caches = caches_of(policy)
+    return {"canon": canon(res), "wall": wall,
+            "energy": edge_energy(cluster),
+            "launches": sum(w.launches for w in wrappers) - before,
+            "counters": {key: [getattr(c, key, None) for c in caches]
+                         for key in CACHE_COUNTERS},
+            "refreshes": rc.refreshes if rc else None,
+            "scales": scales(cd, rc) if rc else None}
 
 
 def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
@@ -782,6 +891,11 @@ def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
     from repro_torch.launch.schedule import caches_of
     rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
                                                        "cpu")}
+    # the CPU run in a child, beside the numpy and card runs
+    cpu = forked(lambda: cpu_reference(
+        cd, jobs, fleet, serving,
+        synergai(make_torch_score_fn(v2=v2, device="cpu"), rcs["cpu"]),
+        degradations, rcs["cpu"]))
     res_np, ticks_np, wall_np, _ = drive(
         cd, jobs, fleet, serving, synergai(None, rcs["numpy"]), degradations)
 
@@ -792,27 +906,24 @@ def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
                                                card_pol, degradations)
     launches = kernel.launches
 
-    cpu_fn = make_torch_score_fn(v2=v2, device="cpu")
-    cpu_pol = synergai(cpu_fn, rcs["cpu"])
-    res_cpu, _, wall_cpu, _ = drive(cd, jobs, fleet, serving, cpu_pol,
-                                    degradations)
-    if kernel.launches != launches:
+    cpu = cpu()
+    if cpu["launches"]:
         raise SystemExit(f"FAIL {label}: the CPU run launched a kernel")
 
     if launches <= 0 or launches < card_fn.calls:
         raise SystemExit(f"FAIL {label}: {launches} launches for "
                          f"{card_fn.calls} scoring ticks")
-    if canon(res_card) != canon(res_cpu):
+    if canon(res_card) != cpu["canon"]:
         raise SystemExit(f"FAIL {label}: card results differ from the "
                          "device='cpu' run")
     if len(res_card) != len(jobs):
         raise SystemExit(f"FAIL {label}: {len(res_card)} results")
-    caches, cpu_caches = caches_of(card_pol), caches_of(cpu_pol)
+    caches = caches_of(card_pol)
     if ([c.profile_reclaims for c in caches]
-            != [c.profile_reclaims for c in cpu_caches]):
+            != cpu["counters"]["profile_reclaims"]):
         raise SystemExit(f"FAIL {label}: profile reclaims differ from the "
                          "device='cpu' run")
-    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc)
+    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc, cpu)
     placed = {r.job.id: (r.worker, r.config) for r in res_card}
     differ = sum(placed[r.job.id] != (r.worker, r.config) for r in res_np)
     s_np, s_card = summarize(res_np), summarize(res_card)
@@ -831,7 +942,7 @@ def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
                        "card": s_card["violations"]},
         "goodput_jps": {"numpy": s_np["goodput_jps"],
                         "card": s_card["goodput_jps"]},
-        "wall_s": {"numpy": wall_np, "card": wall_card, "cpu": wall_cpu},
+        "wall_s": {"numpy": wall_np, "card": wall_card, "cpu": cpu["wall"]},
         "schedule_calls": len(ticks_card),
         "schedule_ms_per_call": {"numpy": statistics.fmean(ticks_np) * 1e3,
                                  "card": statistics.fmean(ticks_card) * 1e3},
@@ -859,6 +970,11 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
     from repro_torch.launch.schedule import caches_of
     rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
                                                        "cpu")}
+    # the CPU run in a child, beside the numpy and card runs
+    cpu = forked(lambda: cpu_reference(
+        cd, jobs, fleet, serving,
+        make_policy(make_torch_score_fn(device_cache=True, device="cpu"),
+                    rcs["cpu"]), degradations, rcs["cpu"]))
     res_np, ticks_np, wall_np, cluster_np = drive(
         cd, jobs, fleet, serving, make_policy(None, rcs["numpy"]),
         degradations)
@@ -897,12 +1013,8 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
         devicecache.DeviceScoreCache.device_tick = inner
         devicecache.DeviceScoreCache.sync = inner_sync
 
-    cpu_pol = make_policy(make_torch_score_fn(device_cache=True,
-                                              device="cpu"), rcs["cpu"])
-    res_cpu, _, wall_cpu, cluster_cpu = drive(cd, jobs, fleet, serving,
-                                              cpu_pol, degradations)
-    if (ss.tick_score.launches, ss.greedy_place.launches) != tuple(
-            launches.values()):
+    cpu = cpu()
+    if cpu["launches"]:
         raise SystemExit(f"FAIL {label}: the CPU run launched a kernel")
 
     caches = caches_of(card_pol)
@@ -910,20 +1022,17 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
     if ticks <= 0 or any(n != ticks for n in launches.values()):
         raise SystemExit(f"FAIL {label}: launches {launches} for {ticks} "
                          "device ticks")
-    if canon(res_card) != canon(res_cpu):
+    if canon(res_card) != cpu["canon"]:
         raise SystemExit(f"FAIL {label}: card results differ from the "
                          "device='cpu' run")
-    if edge_energy(cluster_card) != edge_energy(cluster_cpu):
+    if edge_energy(cluster_card) != cpu["energy"]:
         raise SystemExit(f"FAIL {label}: edge energy differs from the "
                          "device='cpu' run")
-    cpu_caches = caches_of(cpu_pol)
-    for key in ("ticks", "rows_uploaded", "bytes_to_device", "fail_masks",
-                "flushes", "profile_reclaims"):
-        if (sum(getattr(c, key) for c in caches)
-                != sum(getattr(c, key) for c in cpu_caches)):
+    for key in CACHE_COUNTERS:
+        if sum(getattr(c, key) for c in caches) != sum(cpu["counters"][key]):
             raise SystemExit(f"FAIL {label}: counter {key} differs from the "
                              "device='cpu' run")
-    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc)
+    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc, cpu)
     if len(res_card) != len(jobs):
         raise SystemExit(f"FAIL {label}: {len(res_card)} results")
     placed = {r.job.id: (r.worker, r.config) for r in res_card}
@@ -944,7 +1053,7 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
                        "card": s_card["violations"]},
         "goodput_jps": {"numpy": s_np["goodput_jps"],
                         "card": s_card["goodput_jps"]},
-        "wall_s": {"numpy": wall_np, "card": wall_card, "cpu": wall_cpu},
+        "wall_s": {"numpy": wall_np, "card": wall_card, "cpu": cpu["wall"]},
         "schedule_calls": len(ticks_card),
         "schedule_ms_per_call": {"numpy": statistics.fmean(ticks_np) * 1e3,
                                  "card": statistics.fmean(ticks_card) * 1e3},
@@ -1309,7 +1418,7 @@ def hold_attention(label, kernel_name, wrapper, plain, library, inputs,
     return r
 
 
-def hold_flash(B, S, H, K, hd, window, dtype_name, rate):
+def hold_flash(B, S, H, K, hd, window, causal, dtype_name, rate):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1318,27 +1427,28 @@ def hold_flash(B, S, H, K, hd, window, dtype_name, rate):
     ok = None
     if window is not None:
         pos = torch.arange(S, device="cuda")
-        ok = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
-                                               < window)
+        ok = pos[:, None] - pos[None, :] < window
+        if causal:
+            ok &= pos[None, :] <= pos[:, None]
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=ok, is_causal=ok is None,
+            attn_mask=ok, is_causal=causal and ok is None,
             enable_gqa=True).transpose(1, 2)
 
     def kernel(q, k, v):
-        return fa.flash_attention(q, k, v, causal=True, window=window)
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
 
     esize = inputs[0].element_size()
-    label = (f"flash_attention (B, S, H, K, hd, window)="
-             f"{(B, S, H, K, hd, window)} {dtype_name}")
+    label = (f"flash_attention (B, S, H, K, hd, window, causal)="
+             f"{(B, S, H, K, hd, window, causal)} {dtype_name}")
     r = hold_attention(
         label, "flash_attention_kernel", kernel,
-        lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=True,
+        lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=causal,
                                                  window=window),
         sdpa, inputs, dtype_name,
-        4 * B * H * visible_pairs(S, S, True, window) * hd,
+        4 * B * H * visible_pairs(S, S, causal, window) * hd,
         esize * (2 * B * S * H * hd + 2 * B * S * K * hd), rate)
     # bf16 runs on the tensor cores, f32 on the FMA kernel, by dtype (the
     # names from the trace that timed it)
@@ -1683,27 +1793,23 @@ def traced_generate(model, params, toks):
     return torch.stack(steps), out
 
 
-def parity(model, params, toks, dtype_name, wrappers, plains):
-    """The same prompts through the kernels and through their plain
-    versions (``plains``: the names the model looks up, patched to the
-    plain versions), held step by step: max |delta| / max |plain| of each
-    row's logits within ``LOGIT_BOUND``; a row is compared up to its first
-    parting of tokens, and a parting is explained only where the plain
-    run's top-2 gap is no larger than max |delta logit| at that step.
-    ``wrappers``: the kernels whose launch counts show which run is which."""
+def plain_run(model, params, toks, plains):
+    """``traced_generate`` with ``plains`` patched in (the names the model
+    looks the kernels up by, to their plain versions)."""
     from contextlib import ExitStack
-    counts = launch_counts(wrappers)
-    logits_k, toks_k = traced_generate(model, params, toks)
-    if launch_counts(wrappers) == counts:
-        raise SystemExit("FAIL parity: the kernel run launched no kernel")
-    counts = launch_counts(wrappers)
     with ExitStack() as stack:
         for target, plain in plains.items():
             stack.enter_context(mock.patch(target, plain))
-        logits_p, toks_p = traced_generate(model, params, toks)
-    if launch_counts(wrappers) != counts:
-        raise SystemExit("FAIL parity: the plain run launched a kernel")
-    bound = LOGIT_BOUND[dtype_name]
+        return traced_generate(model, params, toks)
+
+
+def held_steps(run, ref, bound):
+    """``run`` = (logits [T, B, V], tokens [B, T]) held step by step to
+    ``ref``: max |delta| / max |ref| of each row's logits within ``bound``;
+    a row is compared up to its first parting of tokens, and a parting is
+    explained only where the reference's top-2 gap is no larger than max
+    |delta logit| at that step."""
+    (logits_k, toks_k), (logits_p, toks_p) = run, ref
     equal, partings, worst, over = 0, [], 0.0, []
     T, B = logits_p.shape[:2]
     for b in range(B):
@@ -1722,16 +1828,53 @@ def parity(model, params, toks, dtype_name, wrappers, plains):
                                  "explained": gap <= dmax})
                 break
             equal += 1
-    line = {"arch": model.cfg.name, "dtype": dtype_name, "rows": B,
-            "steps": T, "equal_tokens": equal, "bound": bound,
+    return {"rows": B, "steps": T, "equal_tokens": equal, "bound": bound,
             "worst_rel_delta": worst, "partings": partings,
             "over_bound": over}
+
+
+def parity(model, params, toks, dtype_name, wrappers, plains, floor=None):
+    """The same prompts through the kernels and through their plain
+    versions (``plains``: the names the model looks up, patched to the
+    plain versions), held by ``held_steps`` within ``LOGIT_BOUND``, or
+    within ``floor`` where one is given and larger (the plain bf16 run's
+    own distance from the f32 function, ``bf16_floor``).  ``wrappers``: the
+    kernels whose launch counts show which run is which."""
+    counts = launch_counts(wrappers)
+    run_k = traced_generate(model, params, toks)
+    if launch_counts(wrappers) == counts:
+        raise SystemExit("FAIL parity: the kernel run launched no kernel")
+    counts = launch_counts(wrappers)
+    run_p = plain_run(model, params, toks, plains)
+    if launch_counts(wrappers) != counts:
+        raise SystemExit("FAIL parity: the plain run launched a kernel")
+    bound = LOGIT_BOUND[dtype_name]
+    if floor is not None:
+        bound = max(bound, floor)
+    line = {"arch": model.cfg.name, "dtype": dtype_name,
+            **held_steps(run_k, run_p, bound)}
+    if floor is not None:
+        line.update(logit_bound=LOGIT_BOUND[dtype_name], floor=floor)
     print("parity " + json.dumps(line), flush=True)
-    if over or any(not p["explained"] for p in partings):
+    if line["over_bound"] or any(not p["explained"]
+                                 for p in line["partings"]):
         raise SystemExit(f"FAIL parity {model.cfg.name} {dtype_name}: "
-                         f"{len(over)} steps over the bound or an "
-                         "unexplained parting")
+                         f"{len(line['over_bound'])} steps over the bound or "
+                         "an unexplained parting")
     return line
+
+
+def bf16_floor(model, params, model32, params32, toks, plains):
+    """How far the plain bf16 run itself is from the function: the plain
+    versions' bf16 run held by ``held_steps`` to their f32 run (the same
+    weights cast, TF32 off) on the same prompts, its worst max |delta| /
+    max |f32| up to each row's first parting."""
+    line = held_steps(plain_run(model, params, toks, plains),
+                      plain_run(model32, params32, toks, plains),
+                      LOGIT_BOUND["bfloat16"])
+    print("bf16_floor " + json.dumps({"arch": model.cfg.name, **line}),
+          flush=True)
+    return line["worst_rel_delta"]
 
 
 def routing_recorder(route, log):
@@ -1995,7 +2138,10 @@ def decode_profile(model, params, toks, share=("decode_attention_share",
     batch = as_batch(toks)
     B, S = batch["tokens"].shape
     logits, caches = model.prefill(params, batch)
-    caches = pad_cache(caches, model.init_cache(B, PROMPT + GEN + 8))
+    ctx_len = (batch["audio_embeds"].shape[1] if "audio_embeds" in batch
+               else None)
+    caches = pad_cache(caches, model.init_cache(B, PROMPT + GEN + 8,
+                                                ctx_len))
     state = {"tok": greedy(logits), "pos": S, "caches": caches}
 
     def step():
@@ -2128,16 +2274,11 @@ def serve_vlm(vcfg, f32_layers, device=None):
     ``device`` as in ``serve_mla``.  Returns (launches, profile)."""
     import torch
     from repro_torch._tree import tree_leaves, tree_map
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import vision_embeds
     from repro_torch.models.registry import build_model
     wrappers = kernel_wrappers()
     attn = {k: wrappers[k] for k in ("flash_attention", "decode_attention")}
-    attn_plains = {
-        "repro_torch.models.common.flash_attention": fa.flash_attention_plain,
-        "repro_torch.models.common.decode_attention":
-            da.decode_attention_plain}
+    attn_plains = attention_plains()
     vmodel = build_model(vcfg, device=device)
     t0 = time.perf_counter()
     params = vmodel.init_params(torch.Generator(device=vmodel.device)
@@ -2182,6 +2323,193 @@ def serve_vlm(vcfg, f32_layers, device=None):
     return launches, profile
 
 
+def attention_plains():
+    """The attention kernels' plain versions, under the names the model
+    looks them up by."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    return {"repro_torch.models.common.flash_attention":
+            fa.flash_attention_plain,
+            "repro_torch.models.common.decode_attention":
+            da.decode_attention_plain}
+
+
+def prefill_profile(model, params, toks, share=("mamba_recurrence_share",
+                                                "addcmul")):
+    """One prefill of ``toks``: its host seconds (the device synchronised
+    at both ends), then a profile of the device's activity alone over one
+    more: device ms, the share of the kernels whose names contain
+    ``share[1]`` (the Mamba recurrence's in-place ``addcmul_``, one launch
+    a token and layer), kernels a prefill and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = as_batch(toks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, batch)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    # the device's activity alone: a prefill is tens of thousands of ops;
+    # (a rehearsal on a machine without a card records the host's)
+    with profile(activities=[ProfilerActivity.CUDA
+                             if torch.cuda.is_available()
+                             else ProfilerActivity.CPU]) as prof:
+        model.prefill(params, batch)
+        torch.cuda.synchronize()
+    by_name, n = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+            n += 1
+    device = sum(by_name.values())
+    part = sum(v for k, v in by_name.items() if share[1] in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    line = {"arch": model.cfg.name, "host_s": host_s,
+            "device_ms": device if by_name else None,
+            "idle_share": (1.0 - device / (host_s * 1e3) if by_name
+                           else None),
+            share[0]: part / device if device else None,
+            "kernels": n, "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    print("prefill_profile " + json.dumps(line), flush=True)
+    return line
+
+
+def serve_hymba(hcfg, device=None):
+    """Phase 4f on ``hcfg`` (hymba-1.5b at full width): the serving run,
+    its launches held to flash in prefill and decode attention in decode
+    on every layer, windowed or global, and to nothing else; parity in bf16
+    and in f32 on all layers; a decode-step profile and a prefill profile
+    with the Mamba recurrence's share.  The random-weight hymba's own bf16
+    noise (the plain bf16 run against the plain f32 run, ``bf16_floor``)
+    is above ``LOGIT_BOUND``'s 3e-2 (0.036 on the H100), so its bf16
+    parity is held within that floor where it is larger; the f32 parity
+    keeps 1e-4.  ``device`` as in ``serve_mla``.  Returns (launches,
+    decode profile, prefill profile)."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.models.decoder import build_layout
+    from repro_torch.models.registry import build_model
+    wrappers = kernel_wrappers()
+    attn = {k: wrappers[k] for k in ("flash_attention", "decode_attention")}
+    hmodel = build_model(hcfg, device=device)
+    t0 = time.perf_counter()
+    params = hmodel.init_params(torch.Generator(device=hmodel.device)
+                                .manual_seed(0))
+    torch.cuda.synchronize()
+    windowed = sum(g.n for g in build_layout(hcfg) if g.spec.window)
+    s = hcfg.ssm
+    print(f"params: {hcfg.name} {hcfg.dtype}, {hcfg.n_layers} layers "
+          f"({hcfg.n_layers - windowed} global, {windowed} windowed at "
+          f"{hcfg.sliding_window}) x d_model {hcfg.d_model}, {hcfg.n_heads} "
+          f"query over {hcfg.n_kv_heads} kv heads, Mamba d_inner "
+          f"{s.d_inner_mult * hcfg.d_model} state {s.state_dim}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator(device=hmodel.device).manual_seed(1)
+    prompts = [torch.randint(0, hcfg.vocab, (SERVE_BATCH, PROMPT),
+                             generator=rng, device=hmodel.device)
+               for _ in range(REQUESTS)]
+    L = hcfg.n_layers
+    none = {"moe_routing": 0, "rwkv_scan": 0}
+    launches = serve_run(
+        hmodel, params, prompts, wrappers,
+        {"flash_attention": L * REQUESTS, "decode_attention": 0, **none},
+        {"flash_attention": 0, "decode_attention": L * (GEN - 1) * REQUESTS,
+         **none})
+    model32 = build_model(dataclasses.replace(hcfg, dtype="float32"),
+                          device=hmodel.device)
+    params32 = tree_map(lambda t: t.float(), params)  # A_log is f32 already
+    floor = bf16_floor(hmodel, params, model32, params32, prompts[0],
+                       attention_plains())
+    parity(hmodel, params, prompts[0], "bfloat16", attn, attention_plains(),
+           floor=floor)
+    profile = decode_profile(hmodel, params, prompts[0])
+    prefill = prefill_profile(hmodel, params, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+    parity(model32, params32, prompts[0], "float32", attn,
+           attention_plains())
+    del params32, prompts
+    torch.cuda.empty_cache()
+    return launches, profile, prefill
+
+
+def serve_encdec(ecfg, device=None):
+    """Phase 4g on ``ecfg`` (seamless-m4t-medium at full width): the
+    serving run with ``audio_embeds`` of the prompt's length, its launches
+    held to flash in prefill (the encoder's and the cross layers'
+    non-causal, the self layers' causal, counted apart) and decode attention
+    in decode on the self layers alone; parity in bf16 and in f32 on all
+    layers; a decode-step profile.  ``device`` as in ``serve_mla``.
+    Returns (launches, profile)."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.launch.serve import audio_embeds
+    from repro_torch.models import common
+    from repro_torch.models.registry import build_model
+    wrappers = kernel_wrappers()
+    attn = {k: wrappers[k] for k in ("flash_attention", "decode_attention")}
+    emodel = build_model(ecfg, device=device)
+    t0 = time.perf_counter()
+    params = emodel.init_params(torch.Generator(device=emodel.device)
+                                .manual_seed(0))
+    torch.cuda.synchronize()
+    E, L = ecfg.encdec.n_enc_layers, ecfg.n_layers
+    print(f"params: {ecfg.name} {ecfg.dtype}, {E} encoder + {L} decoder "
+          f"layers x d_model {ecfg.d_model}, vocab {ecfg.vocab}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator(device=emodel.device).manual_seed(1)
+    prompts = [{"tokens": torch.randint(0, ecfg.vocab, (SERVE_BATCH, PROMPT),
+                                        generator=rng, device=emodel.device),
+                "audio_embeds": audio_embeds(ecfg, SERVE_BATCH, PROMPT, rng,
+                                             emodel.device)}
+               for _ in range(REQUESTS)]
+    # the flash calls by mask, beside the wrapper's launch count
+    masks = {"causal": 0, "non_causal": 0}
+    flash = common.flash_attention
+
+    def by_mask(q, k, v, *, causal=True, window=None):
+        masks["causal" if causal else "non_causal"] += 1
+        return flash(q, k, v, causal=causal, window=window)
+
+    none = {"moe_routing": 0, "rwkv_scan": 0}
+    with mock.patch.object(common, "flash_attention", by_mask):
+        launches = serve_run(
+            emodel, params, prompts, wrappers,
+            {"flash_attention": (E + 2 * L) * REQUESTS,
+             "decode_attention": 0, **none},
+            {"flash_attention": 0,
+             "decode_attention": L * (GEN - 1) * REQUESTS, **none})
+    want = {"causal": L * REQUESTS, "non_causal": (E + L) * REQUESTS}
+    print("flash_masks " + json.dumps({"arch": ecfg.name, "calls": masks,
+                                       "expected": want}), flush=True)
+    if masks != want:
+        raise SystemExit(f"FAIL serve {ecfg.name}: flash calls {masks}, "
+                         f"expected {want}")
+    parity(emodel, params, prompts[0], "bfloat16", attn, attention_plains())
+    profile = decode_profile(emodel, params, prompts[0])
+    params = tree_map(lambda t: t.float(), params)
+    torch.cuda.empty_cache()
+    parity(build_model(dataclasses.replace(ecfg, dtype="float32"),
+                       device=emodel.device),
+           params, tree_map(lambda t: t.float() if t.is_floating_point()
+                            else t, prompts[0]), "float32", attn,
+           attention_plains())
+    del params, prompts
+    torch.cuda.empty_cache()
+    return launches, profile
+
+
+def phase_done(name, t0):
+    """Print a phase's seconds on a line of its own; the next phase's
+    start."""
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return time.perf_counter()
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2208,6 +2536,7 @@ def main() -> int:
     from repro_torch.kernels import scheduler_score as ss
 
     # 1. the card, the build (one nvcc per source, all started together)
+    t_phase = time.perf_counter()
     resolve_device()
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2228,6 +2557,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False", flush=True)
+    t_phase = phase_done("1 (card, build)", t_phase)
 
     # 2a. the scoring kernels against their plain versions
     kernels = {
@@ -2254,6 +2584,7 @@ def main() -> int:
                   + json.dumps({key: r[key] for key in TIMES}), flush=True)
             del inputs
         torch.cuda.empty_cache()
+    t_phase = phase_done("2a (scoring kernels)", t_phase)
 
     # 2b. the device-resident tick against its plain version
     for J, cap, W in TICK_SHAPES:
@@ -2271,6 +2602,7 @@ def main() -> int:
             del inputs
             torch.cuda.empty_cache()
         print(f"hold scheduler_tick J={J} cap={cap} W={W}: exact", flush=True)
+    t_phase = phase_done("2b (tick kernels)", t_phase)
 
     # 2c-2d. the attention kernels against their plain versions
     from repro_torch.kernels import decode_attention as da
@@ -2295,6 +2627,7 @@ def main() -> int:
             attn_worst["decode_attention"] = max(
                 attn_worst["decode_attention"], r["max_abs_err"])
         torch.cuda.empty_cache()
+    t_phase = phase_done("2c-2d (attention kernels)", t_phase)
 
     # 2e. the WKV scan against its plain version, bit for bit
     lib = _build.load("rwkv_scan")
@@ -2306,6 +2639,7 @@ def main() -> int:
                   for dtype_name in ("float32", "bfloat16")
                   for shape in RWKV_HOLDS}
     torch.cuda.empty_cache()
+    t_phase = phase_done("2e (WKV scan)", t_phase)
 
     # 2f. the MoE router against its plain version, bit for bit, then its
     # two designs on each side of the switch-over
@@ -2322,10 +2656,12 @@ def main() -> int:
     for T in (4, 1024, mr.SWITCH_T - 1, mr.SWITCH_T, 1536, 4096):
         router_designs(T, 4096, 16, 2, rate)
     torch.cuda.empty_cache()
+    t_phase = phase_done("2f (router)", t_phase)
 
     # 3, 3f-3g. the scheduling path at full size, drift, the comparison
     sched = scheduling_path()
     fleet = sched.fleet
+    t_phase = phase_done("3, 3f-3g (scheduling, drift, comparison)", t_phase)
 
     # 4-6. the serving path at full width, its parity, a decode-step profile
     from repro_torch._tree import tree_leaves, tree_map
@@ -2355,10 +2691,7 @@ def main() -> int:
          "moe_routing": 0},
         {"flash_attention": 0, "decode_attention": L * (GEN - 1) * REQUESTS,
          "moe_routing": 0})
-    attn_plains = {
-        "repro_torch.models.common.flash_attention": fa.flash_attention_plain,
-        "repro_torch.models.common.decode_attention":
-            da.decode_attention_plain}
+    attn_plains = attention_plains()
     parity(model, params, prompts[0], "bfloat16", attn, attn_plains)
     profile_line = decode_profile(model, params, prompts[0])
     params = tree_map(lambda t: t.float(), params)
@@ -2367,6 +2700,7 @@ def main() -> int:
     parity(model32, params, prompts[0], "float32", attn, attn_plains)
     del params
     torch.cuda.empty_cache()
+    t_phase = phase_done("4-6 (qwen3-4b)", t_phase)
 
     # 4b-6b. the RWKV serving path at full width, its parity, a decode-step
     # profile
@@ -2402,6 +2736,7 @@ def main() -> int:
            prompts[0], "float32", wkv, wkv_plains)
     del params, prompts
     torch.cuda.empty_cache()
+    t_phase = phase_done("4b-6b (rwkv6-1.6b)", t_phase)
 
     # 4c-6c. the MoE serving path: phi3.5-moe at full width with 24 of its
     # 32 layers, its parity (i: the router alone, bit for bit; iii: all
@@ -2456,14 +2791,24 @@ def main() -> int:
         "float32", moe_w, attn_plains)
     del params, prompts
     torch.cuda.empty_cache()
+    t_phase = phase_done("4c-6c (phi3.5-moe)", t_phase)
 
     # 4d. the MLA serving path: deepseek-v2 at full width with 7 of its 60
-    # layers; 4e. the VLM serving path: llama-3.2-vision at full width
+    # layers; 4e. the VLM serving path: llama-3.2-vision at full width;
+    # 4f. the hybrid serving path: hymba-1.5b at full width; 4g. the
+    # encoder-decoder serving path: seamless-m4t-medium at full width
     dcfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
     mla_launches, mla_profile, absorb_profile = serve_mla(
         dcfg, MLA_F32_LAYERS, get_config(MLA_ARCH).n_layers)
+    t_phase = phase_done("4d (deepseek-v2)", t_phase)
     vlm_launches, vlm_profile = serve_vlm(get_config(VLM_ARCH),
                                           VLM_F32_LAYERS)
+    t_phase = phase_done("4e (llama-3.2-vision)", t_phase)
+    hymba_launches, hymba_profile, hymba_prefill = serve_hymba(
+        get_config(HYMBA_ARCH))
+    t_phase = phase_done("4f (hymba-1.5b)", t_phase)
+    encdec_launches, encdec_profile = serve_encdec(get_config(ENCDEC_ARCH))
+    t_phase = phase_done("4g (seamless-m4t-medium)", t_phase)
 
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
@@ -2535,7 +2880,7 @@ def main() -> int:
     # the attention kernels at the serving path's shapes in bf16: flash at
     # the prompt, decode at the mean k_valid of the 31 decode steps
     flash = hold_flash(SERVE_BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads,
-                       cfg.head_dim, None, "bfloat16", rate)
+                       cfg.head_dim, None, True, "bfloat16", rate)
     mean_valid = PROMPT + 1 + (GEN - 2) // 2
     decode = hold_decode(SERVE_BATCH, PROMPT + GEN + 8, cfg.n_heads,
                          cfg.n_kv_heads, cfg.head_dim, mean_valid,
@@ -2547,11 +2892,14 @@ def main() -> int:
             ("decode_attention", decode, 24,
              [SERVE_BATCH, PROMPT + GEN + 8, cfg.n_heads, cfg.n_kv_heads,
               cfg.head_dim, mean_valid])):
-        # the attention serving paths: qwen3-4b, phi3.5-moe and the VLM's
-        # self layers (the same shapes as qwen3-4b's)
+        # the attention serving paths: qwen3-4b, phi3.5-moe, the VLM's
+        # self layers (the same shapes as qwen3-4b's), hymba and
+        # seamless-m4t (held at their own shapes in 2c-2d)
         paths = {SERVE_ARCH: serve_launches[kname],
                  MOE_ARCH: moe_launches[kname],
-                 VLM_ARCH: vlm_launches[kname]}
+                 VLM_ARCH: vlm_launches[kname],
+                 HYMBA_ARCH: hymba_launches[kname],
+                 ENCDEC_ARCH: encdec_launches[kname]}
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
@@ -2621,11 +2969,17 @@ def main() -> int:
                       (moe_profile, "moe_routing_share"),
                       (mla_profile, "moe_routing_share"),
                       (absorb_profile, "moe_routing_share"),
-                      (vlm_profile, "decode_attention_share")):
+                      (vlm_profile, "decode_attention_share"),
+                      (hymba_profile, "decode_attention_share"),
+                      (encdec_profile, "decode_attention_share")):
         mode = f" ({line['mode']})" if "mode" in line else ""
         print(f"decode step {line['arch']}{mode}: " + json.dumps(
             {k: line[k] for k in ("host_ms_per_step", "device_ms_per_step",
                                   "idle_share", key)}))
+    print(f"prefill {HYMBA_ARCH}: " + json.dumps(
+        {k: hymba_prefill[k] for k in ("host_s", "device_ms", "idle_share",
+                                       "mamba_recurrence_share")}))
+    phase_done("7 (launch floor, kernels at the paths' shapes)", t_phase)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

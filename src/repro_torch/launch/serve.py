@@ -9,12 +9,12 @@ selection via Eq. 1-4 against the offline Configuration Dictionary).
         [--batch 2] [--prompt-len 16] [--gen 8] [--requests 3] [--device cpu]
 
 It runs on the card (the attention kernels, the WKV scan, the MoE router)
-unless ``--device cpu`` asks for the CPU (their plain versions).  The
-dense, RWKV, MoE (phi3.5-moe, and deepseek-v2 with MLA) and VLM
-(llama-3.2-vision, its vision embeddings a stub of 0.02 x a standard
-normal, as the JAX launcher makes them) families are ported; the hybrid
-and encoder-decoder families raise ``NotImplementedError`` naming the
-slice they wait for.
+unless ``--device cpu`` asks for the CPU (their plain versions).  Every
+family of the registry serves: dense, RWKV, MoE (phi3.5-moe, and
+deepseek-v2 with MLA), hybrid (hymba), VLM (llama-3.2-vision) and
+encoder-decoder (seamless-m4t).  The VLM's vision embeddings and the
+encoder-decoder's audio frame embeddings are stubs of 0.02 x a standard
+normal, as the JAX launcher makes them, in the model's dtype.
 """
 
 from __future__ import annotations
@@ -60,6 +60,14 @@ def vision_embeds(cfg, batch: int, generator, device):
     return (0.02 * x).to(dtype_of(cfg))
 
 
+def audio_embeds(cfg, batch: int, frames: int, generator, device):
+    """The speech frontend's stub: 0.02 x a standard normal of [batch,
+    frames, d_model] from ``generator``, in the model's dtype."""
+    x = torch.randn((batch, frames, cfg.d_model), generator=generator,
+                    device=device)
+    return (0.02 * x).to(dtype_of(cfg))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
@@ -89,6 +97,10 @@ def main(argv=None):
         if cfg.family == "vlm":
             batch["vision_embeds"] = vision_embeds(cfg, args.batch, gen,
                                                    model.device)
+        if cfg.family == "audio":
+            batch["audio_embeds"] = audio_embeds(cfg, args.batch,
+                                                 args.prompt_len, gen,
+                                                 model.device)
         t0 = time.perf_counter()
         out = eng.generate(batch, args.gen)
         print(f"req {rid} -> {plan}: generated {out.shape[1]} tokens "

@@ -17,7 +17,7 @@ Where torch and JAX differ the port follows JAX: ``gelu`` is the tanh
 approximation, norms run in f32 and cast back, RoPE promotes to f32 and casts
 back.  ``chunked_time_scan`` is a JAX remat device for training and waits for
 the training slice; the RWKV layers call the ``rwkv_scan`` kernel in its
-place.
+place, the Mamba branch ``layers.selective_scan``.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@
 and returns the same nested dict of tensors on ``device``, dtype for dtype:
 the port keeps the JAX keys and the per-group stacking, so the map is
 structural (an MoE layer's ``moe`` subtree too, its f32 router staying
-f32).  bfloat16 arrays (numpy's ``ml_dtypes`` type) keep their bits.
+f32, a hymba layer's f32 ``A_log`` too), and an encoder-decoder model's
+``encoder`` subtree, its ``layers`` stacked over ``n_enc_layers``.  bfloat16
+arrays (numpy's ``ml_dtypes`` type) keep their bits.
 """
 
 from __future__ import annotations
@@ -33,12 +35,18 @@ def from_jax(tree, cfg: ModelConfig, device=None):
     """The port's params from the JAX package's params (numpy leaves)."""
     device = resolve_device(device)
     groups = build_layout(cfg)
-    if set(tree) != {"embed", "groups"} or len(tree["groups"]) != len(groups):
-        raise ValueError(f"not a {cfg.name} decoder tree: {sorted(tree)}, "
+    keys = {"embed", "groups"} | ({"encoder"} if cfg.encdec else set())
+    if set(tree) != keys or len(tree["groups"]) != len(groups):
+        raise ValueError(f"not a {cfg.name} tree: {sorted(tree)}, "
                          f"{len(tree.get('groups', []))} groups for "
                          f"{len(groups)}")
-    for g, gtree in zip(groups, tree["groups"]):
+    stacks = [(g.n, gtree) for g, gtree in zip(groups, tree["groups"])]
+    if cfg.encdec:
+        if set(tree["encoder"]) != {"layers", "final_norm"}:
+            raise ValueError(f"not an encoder tree: {sorted(tree['encoder'])}")
+        stacks.append((cfg.encdec.n_enc_layers, tree["encoder"]["layers"]))
+    for n, gtree in stacks:
         lead = {np.shape(a)[0] for a in tree_leaves(gtree)}
-        if lead != {g.n}:
-            raise ValueError(f"group of {g.n} layers has leading dims {lead}")
+        if lead != {n}:
+            raise ValueError(f"group of {n} layers has leading dims {lead}")
     return tree_map(lambda a: to_torch(a, device), tree)

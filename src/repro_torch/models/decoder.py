@@ -1,18 +1,20 @@
-# Port of repro/models/decoder.py: the grouped decoder stack on torch (kinds "dense", "moe" with or without MLA, "rwkv" and "cross").
-"""Generic grouped decoder stack.
+# Port of repro/models/decoder.py: the grouped decoder stack and the encoder stack on torch (every layer kind).
+"""Generic grouped decoder stack, and the encoder-decoder family's encoder.
 
 Layers are described by a per-layer ``LayerSpec``; consecutive identical
 specs form a ``Group`` whose params carry a leading ``n`` (layer) dimension,
 the same stacking as the JAX package, so its params map key for key.  Where
 JAX scans a group with ``lax.scan``, the port loops over its layers.
 
-The port runs kinds ``"dense"``, ``"moe"`` (MLA attention too, in both
-``absorb_mla`` modes), ``"rwkv"`` and ``"cross"`` (the VLM's gated
-cross-attention layers over a context input) in prefill and decode.  The
-other kinds (hymba, encdec_dec) and ``mode="train"`` raise
-``NotImplementedError`` naming the slice they wait for.  The JAX stack's
-``constrain_seq`` is a no-op off a device mesh and waits for the sharding
-slice.
+The port runs every kind in prefill and decode: ``"dense"``, ``"moe"`` (MLA
+attention too, in both ``absorb_mla`` modes), ``"rwkv"``, ``"cross"`` (the
+VLM's gated cross-attention layers over a context input), ``"hymba"``
+(attention and a Mamba branch side by side on one norm) and ``"encdec_dec"``
+(self-attention, ungated cross-attention over the encoder's output, MLP).
+``encoder_stack`` is the encoder-decoder family's bidirectional encoder.
+``mode="train"`` raises ``NotImplementedError`` naming the training slice.
+The JAX stack's ``constrain_seq`` is a no-op off a device mesh and waits for
+the sharding slice.
 """
 
 from __future__ import annotations
@@ -25,14 +27,9 @@ import torch
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, layers
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import apply_rope, rms_norm
 
 # kinds: dense | moe | rwkv | hymba | cross | encdec_dec
-
-_LATER = {
-    "hymba": "the Mamba/hymba slice",
-    "encdec_dec": "the encoder-decoder slice",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,23 +74,39 @@ def build_layout(cfg: ModelConfig) -> list[Group]:
     return groups
 
 
-def _check_ported(spec: LayerSpec):
-    if spec.kind in _LATER:
-        raise NotImplementedError(
-            f"layer kind {spec.kind!r} waits for {_LATER[spec.kind]}")
-
-
 # ----------------------------------------------------------------------------
-# per-group init / forward (kinds "dense", "moe", "rwkv" and "cross")
+# per-group init / forward
 
 
 def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
-    _check_ported(g.spec)
     D, lead = cfg.d_model, (g.n,)
+
+    def norm():
+        return torch.zeros(lead + (D,), dtype=dtype, device=device)
+
     if g.spec.kind == "rwkv":
-        return {"ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
+        return {"ln1": norm(),
                 **layers.init_rwkv_layer(generator, cfg, dtype, device, lead),
-                "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device)}
+                "ln2": norm()}
+    if g.spec.kind == "hymba":   # A_log stays f32 (init_mamba)
+        return {"ln1": norm(),
+                "attn": layers.init_attention(generator, cfg, dtype, device,
+                                              lead),
+                "mamba": layers.init_mamba(generator, cfg, dtype, device,
+                                           lead),
+                "norm_attn": norm(), "norm_ssm": norm(), "ln2": norm(),
+                "mlp": common.init_mlp(generator, D, cfg.d_ff, dtype, device,
+                                       lead)}
+    if g.spec.kind == "encdec_dec":
+        return {"ln1": norm(),
+                "attn": layers.init_attention(generator, cfg, dtype, device,
+                                              lead),
+                "ln_cross": norm(),
+                "cross": layers.init_cross_attention(generator, cfg, dtype,
+                                                     False, device, lead),
+                "ln2": norm(),
+                "mlp": common.init_mlp(generator, D, cfg.d_ff, dtype, device,
+                                       lead)}
     if g.spec.kind == "cross":
         attn = layers.init_cross_attention(generator, cfg, dtype, True,
                                            device, lead)
@@ -101,11 +114,7 @@ def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
         attn = layers.init_mla(generator, cfg, dtype, device, lead)
     else:
         attn = layers.init_attention(generator, cfg, dtype, device, lead)
-    p = {
-        "ln1": torch.zeros(lead + (D,), dtype=dtype, device=device),
-        "attn": attn,
-        "ln2": torch.zeros(lead + (D,), dtype=dtype, device=device),
-    }
+    p = {"ln1": norm(), "attn": attn, "ln2": norm()}
     if g.spec.kind == "moe":     # the router stays f32 (init_moe)
         p["moe"] = layers.init_moe(generator, cfg, dtype, device, lead)
     else:
@@ -116,14 +125,23 @@ def _init_group(generator, cfg: ModelConfig, g: Group, dtype, device):
 
 def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
                       dtype, device):
-    _check_ported(g.spec)
     lead = (g.n,)
     if g.spec.kind == "rwkv":
         return layers.init_rwkv_cache(cfg, batch, dtype, device, lead)
-    if g.spec.kind == "cross":    # sized by the context, not the buffer
+    if g.spec.kind in ("cross", "encdec_dec"):  # cross: sized by the context
         kv = layers.init_attn_cache(cfg, batch, ctx_len, dtype, device, lead)
-        return {"ck": kv["k"], "cv": kv["v"]}
+        cross = {"ck": kv["k"], "cv": kv["v"]}
+        if g.spec.kind == "cross":
+            return cross
+        return {"attn": layers.init_attn_cache(cfg, batch, buf_len, dtype,
+                                               device, lead),
+                "cross": cross}
     buf = min(buf_len, g.spec.window) if g.spec.window else buf_len
+    if g.spec.kind == "hymba":   # a ring of `window` slots on windowed layers
+        return {"attn": layers.init_attn_cache(cfg, batch, buf, dtype, device,
+                                               lead),
+                "mamba": layers.init_mamba_cache(cfg, batch, dtype, device,
+                                                 lead)}
     if g.spec.mla:
         return layers.init_mla_cache(cfg, batch, buf, dtype, device, lead)
     return layers.init_attn_cache(cfg, batch, buf, dtype, device, lead)
@@ -148,6 +166,30 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
         x = x + torch.tanh(p["attn"]["gate_attn"]) * h
         h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
         return x + torch.tanh(p["attn"]["gate_ffn"]) * h, c_cache
+    if spec.kind == "hymba":      # attention and Mamba on one norm
+        cache = cache or {}
+        xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+        a, a_cache = layers.attn_sublayer(
+            p["attn"], cfg, xin, mode=mode, cache=cache.get("attn"), pos=pos,
+            window=spec.window)
+        s, s_cache = layers.mamba_branch(p["mamba"], cfg, xin, mode=mode,
+                                         cache=cache.get("mamba"))
+        x = x + 0.5 * (rms_norm(a, p["norm_attn"], cfg.norm_eps)
+                       + rms_norm(s, p["norm_ssm"], cfg.norm_eps))
+        h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+        return x + h, {"attn": a_cache, "mamba": s_cache}
+    if spec.kind == "encdec_dec":  # self, ungated cross over ctx, MLP
+        cache = cache or {}
+        h, a_cache = layers.attn_sublayer(
+            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode,
+            cache=cache.get("attn"), pos=pos, window=None)
+        x = x + h
+        h, c_cache = layers.cross_sublayer(
+            p["cross"], cfg, rms_norm(x, p["ln_cross"], cfg.norm_eps),
+            mode=mode, cache=cache.get("cross"), ctx=ctx)
+        x = x + h
+        h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+        return x + h, {"attn": a_cache, "cross": c_cache}
     xin = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.mla:
         h, a_cache = layers.mla_sublayer(p["attn"], cfg, xin, mode=mode,
@@ -196,7 +238,6 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
     caches = caches if caches is not None else [None] * len(groups)
     new_caches = []
     for g, gparams, gcache in zip(groups, params["groups"], caches):
-        _check_ported(g.spec)
         produced = []
         for i in range(g.n):   # layer i of the stacked params and cache
             x, c = _layer_forward(
@@ -208,3 +249,42 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
         new_caches.append(gcache if gcache is not None else tree_map(
             lambda *ts: torch.stack(ts), *produced))
     return x, new_caches
+
+
+# ----------------------------------------------------------------------------
+# encoder stack (seamless-m4t): bidirectional, no cache
+
+
+def init_encoder(generator, cfg: ModelConfig, device=None):
+    dtype = common.dtype_of(cfg)
+    g = Group(LayerSpec("dense"), cfg.encdec.n_enc_layers)
+    return {"layers": _init_group(generator, cfg, g, dtype, device),
+            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                      device=device)}
+
+
+def encoder_stack(params, cfg: ModelConfig, x):
+    """Bidirectional encoder over stubbed frame embeddings [B, S, D].
+
+    ``attn_sublayer`` is causal, so a non-causal variant is inlined here,
+    as in the JAX encoder; its attention is prefill-shaped (Sq == Sk), so
+    ``common.attention`` sends it to the flash kernel, non-causal."""
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    cos, sin = rope_freqs_cached(cfg, torch.arange(S, device=x.device))
+    for i in range(cfg.encdec.n_enc_layers):
+        lp = tree_map(lambda t: t[i], params["layers"])
+        attn = lp["attn"]
+        xin = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q = apply_rope(layers._project(xin, attn["wq"]), cos, sin)
+        k = apply_rope(layers._project(xin, attn["wk"]), cos, sin)
+        v = layers._project(xin, attn["wv"])
+        out = common.attention(cfg, q, k, v, causal=False)
+        x = x + out.reshape(B, S, H * hd) @ attn["wo"].reshape(H * hd, D)
+        x = x + common.mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           cfg.act)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def rope_freqs_cached(cfg, positions):
+    return common.rope_freqs(cfg.head_dim, cfg.rope_theta, positions)

@@ -1,9 +1,11 @@
-# Port of repro/models/layers.py: the GQA self-attention, cross-attention, MLA, MoE FFN and RWKV6 sublayers on torch; the MoE router and the WKV recurrence run on CUDA kernels.
-"""The GQA self-attention sublayer (dense, MoE and VLM self layers), with
-its KV cache; the cross-attention sublayer (the VLM's gated image layers);
-MLA, multi-head latent attention (deepseek-v2), with its latent cache; the
-MoE FFN (GShard-style capacity dispatch); and the RWKV6 (Finch) time- and
-channel-mix sublayers, with their recurrent cache.
+# Port of repro/models/layers.py: the GQA self-attention, cross-attention, MLA, MoE FFN, RWKV6 and Mamba sublayers on torch; the MoE router and the WKV recurrence run on CUDA kernels.
+"""The GQA self-attention sublayer (dense, MoE, VLM, hymba and decoder self
+layers), with its KV cache; the cross-attention sublayer (the VLM's gated
+image layers, the encoder-decoder's ungated ones); MLA, multi-head latent
+attention (deepseek-v2), with its latent cache; the MoE FFN (GShard-style
+capacity dispatch); the RWKV6 (Finch) time- and channel-mix sublayers, with
+their recurrent cache; and the Mamba selective-SSM branch of hymba's layers,
+with its conv and state cache.
 
     init_attention(generator, cfg, dtype) -> params
     attn_sublayer(params, cfg, x, *, mode, cache, pos, window) -> (y, cache)
@@ -16,32 +18,38 @@ channel-mix sublayers, with their recurrent cache.
     init_rwkv_layer(generator, cfg, dtype) -> {"tm", "cm"}
     rwkv_time_mix(params, cfg, x, *, mode, cache) -> (y, {"state", "tm_shift"})
     rwkv_channel_mix(params, cfg, x, *, mode, cache) -> (y, cm_shift)
+    init_mamba(generator, cfg, dtype) -> params (``A_log`` f32)
+    mamba_branch(params, cfg, x, *, mode, cache) -> (y, {"conv", "ssm"})
 
 ``mode``: "prefill" | "decode" ("train" waits for the training slice);
 ``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), the cross cache
 {"ck", "cv"} [B, S_ctx, K, hd], the MLA latent cache {"ckv" [B, buf, R],
 "krope" [B, buf, rope]}, or the RWKV cache {"state" [B, H, hd, hd] f32,
-"tm_shift", "cm_shift" [B, D]}; ``pos``: int, the absolute position of the
-incoming token (decode); ``ctx``: the vision context [B, S_ctx, D]
-(prefill; decode reads the cross cache instead).
+"tm_shift", "cm_shift" [B, D]}, or the Mamba cache {"conv" [B, d_conv - 1,
+d_inner], "ssm" [B, d_inner, N] f32}; ``pos``: int, the absolute position
+of the incoming token (decode); ``ctx``: the vision context or the encoded
+audio [B, S_ctx, D] (prefill; decode reads the cross cache instead).
 
 Caches are written in place in decode (where JAX returns updated buffers):
 the attention and latent caches at the token's slot, the RWKV state by the
 ``rwkv_scan`` kernel itself (``state_out=state``) and the two token shifts
-by a copy; the cross cache is read, never written.  The WKV recurrence,
-which the JAX layer runs as ``common.chunked_time_scan`` (a remat device
-for training), runs on ``kernels.rwkv_scan``.  The MoE router (the JAX
+by a copy, the Mamba conv history and state by a copy; the cross cache is
+read, never written.  The WKV recurrence, which the JAX layer runs as
+``common.chunked_time_scan`` (a remat device for training), runs on
+``kernels.rwkv_scan``.  The MoE router (the JAX
 ``_route``/``_route_grouped``: logits, softmax, top-k mask and renormalized
 gates) runs on ``kernels.moe_routing``; the expert products stay
 ``torch.einsum``, plain large products that the JAX package leaves to XLA.
-Cross-attention and MLA attention take the XLA-path ports of
-``common.attention`` (their shapes do not fit the attention kernels), as
-the JAX package computes them outside any Pallas kernel.  The JAX
+MLA attention takes the XLA-path ports of ``common.attention`` (its shapes
+do not fit the attention kernels), and so does cross-attention except in a
+prefill whose context is as long as the query (the encoder-decoder's, where
+``common.attention`` routes it to the flash kernel, non-causal).  The Mamba
+recurrence is ``lax.scan`` in the JAX package, not a Pallas kernel, so the
+port runs it in PyTorch on tensors (``selective_scan``).  The JAX
 package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN`` switches and
 the MoE sharding constraints (``constrain_moe_groups``,
 ``constrain_moe_expert``, the identity off a device mesh) wait for the
-sharding slice.  The Mamba branch waits for its slice (``decoder.py``
-raises for it).
+sharding slice.
 """
 
 from __future__ import annotations
@@ -486,3 +494,119 @@ def rwkv_channel_mix(p, cfg: ModelConfig, x, *, mode, cache):
     r = torch.sigmoid(xr @ cm["wr"])
     return r * v, (cache.copy_(x[:, -1, :]) if mode == "decode"
                    else x[:, -1, :])
+
+
+# =============================================================================
+# Mamba selective-SSM branch (hymba hybrid heads)
+# =============================================================================
+
+
+def init_mamba(generator, cfg: ModelConfig, dtype, device=None, lead=()):
+    s = cfg.ssm
+    D = cfg.d_model
+    di = s.d_inner_mult * D
+    dt_rank = s.dt_rank or max(1, -(-D // 16))
+    lead = tuple(lead)
+    kw = dict(dtype=dtype, device=device, lead=lead)
+    A_log = torch.log(torch.arange(1, s.state_dim + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        "in_proj": dense_init(generator, (D, 2 * di), in_axis=0, **kw),
+        "conv_w": dense_init(generator, (s.d_conv, di), in_axis=0, **kw),
+        "x_proj": dense_init(generator, (di, dt_rank + 2 * s.state_dim),
+                             in_axis=0, **kw),
+        "dt_proj": dense_init(generator, (dt_rank, di), in_axis=0, **kw),
+        "dt_bias": torch.full(lead + (di,), -4.0, dtype=dtype, device=device),
+        # f32 whatever the model's dtype, as in the JAX init
+        "A_log": A_log.expand(lead + (di, s.state_dim)).contiguous(),
+        "Dskip": torch.ones(lead + (di,), dtype=dtype, device=device),
+        "out_proj": dense_init(generator, (di, D), in_axis=0, **kw),
+    }
+
+
+def init_mamba_cache(cfg: ModelConfig, batch, dtype, device=None, lead=()):
+    s = cfg.ssm
+    di = s.d_inner_mult * cfg.d_model
+    lead = tuple(lead)
+    return {
+        "conv": torch.zeros(lead + (batch, s.d_conv - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros(lead + (batch, di, s.state_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def selective_scan(dt, Bt, Ct, x, A, h0):
+    """The Mamba recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t =
+    h_t C_t, in f32.  dt, x: [B, S, di]; Bt, Ct: [B, S, N]; A: [di, N]; h0:
+    [B, di, N] or None (zeros).  Returns (y [B, S, di], h_S).
+
+    exp(dt A) and dt B x are elementwise, so they are formed for every t at
+    once (the same f32 values as the JAX step's); only the recurrence loops
+    over t, each step one in-place ``addcmul_`` that turns the step's dt B x
+    into its state.  Two [B, S, di, N] tensors are alive at a time."""
+    dA = (dt[..., None] * A).exp_()                    # [B, S, di, N]
+    hs = dt[..., None] * Bt[:, :, None, :]
+    hs.mul_(x[..., None])                              # dt B x, then h
+    h = h0
+    for dA_t, h_t in zip(dA.unbind(1), hs.unbind(1)):
+        if h is not None:
+            h_t.addcmul_(dA_t, h)
+        h = h_t
+    del dA
+    y = torch.einsum("bscn,bsn->bsc", hs, Ct)
+    return y, hs[:, -1].clone()
+
+
+def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
+    """Selective scan.  x: [B, S, D] -> ([B, S, D], {"conv", "ssm"}).
+
+    The casts follow the JAX branch step by step: the convolution, dt's
+    softplus and the projections run in the model's dtype; dt, B, C and the
+    convolved x become f32 for the scan and the skip term; y returns to the
+    model's dtype before the gate.  Decode writes the conv history and the
+    state into ``cache`` in place."""
+    s = cfg.ssm
+    B, S, D = x.shape
+    di = s.d_inner_mult * D
+    N = s.state_dim
+
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]
+
+    # causal depthwise conv, width d_conv: in decode an einsum over the
+    # history, in prefill a sum of shifted products, as JAX sums them
+    if mode == "decode":
+        hist = torch.cat([cache["conv"], xi], dim=1)   # [B, d_conv, di]
+        conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"])[:, None, :]
+    elif mode == "prefill":
+        hist = torch.cat([xi.new_zeros((B, s.d_conv - 1, di)), xi], dim=1)
+        conv_out = hist[:, 0:S] * p["conv_w"][0]
+        for i in range(1, s.d_conv):
+            conv_out = conv_out + hist[:, i:i + S] * p["conv_w"][i]
+    else:
+        raise NotImplementedError(
+            f"mode {mode!r}: training waits for the training slice")
+    xc = F.silu(conv_out)
+
+    proj = xc @ p["x_proj"]
+    dt_rank = p["dt_proj"].shape[0]
+    dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
+                    + p["dt_bias"]).float()            # [B, S, di]
+    Bt = proj[..., dt_rank:dt_rank + N].float()        # [B, S, N]
+    Ct = proj[..., dt_rank + N:].float()               # [B, S, N]
+    A = -torch.exp(p["A_log"])                         # [di, N]
+    xcf = xc.float()
+
+    y, h_end = selective_scan(dt, Bt, Ct, xcf, A,
+                              cache["ssm"] if mode == "decode" else None)
+    y = y + xcf * p["Dskip"].float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+
+    if mode == "decode":
+        new_cache = {"conv": cache["conv"].copy_(hist[:, 1:]),
+                     "ssm": cache["ssm"].copy_(h_end)}
+    else:
+        new_cache = {"conv": hist[:, S:].clone(), "ssm": h_end}
+    return out, new_cache

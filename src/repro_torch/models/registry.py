@@ -1,4 +1,4 @@
-# Port of repro/models/registry.py: the Model API for decoder-only models on torch.
+# Port of repro/models/registry.py: the Model API for decoder-only and encoder-decoder models on torch.
 """Unified Model API.
 
 ``build_model(arch_or_cfg, device=None)`` returns a ``Model`` whose
@@ -8,7 +8,7 @@ keys and per-group stacking:
     init_params(generator)               -> params on the model's device
     prefill(params, batch)               -> (last_logits [B,V], caches)
     decode(params, caches, batch)        -> (logits [B,V], caches)
-    init_cache(batch, buf_len)           -> zeroed caches
+    init_cache(batch, buf_len, ctx_len)  -> zeroed caches
 
 ``decode`` writes into ``caches`` in place: the new token's keys and
 values, or the RWKV state and token shifts (the JAX engine donates the
@@ -20,11 +20,15 @@ package's params, convert them with ``models.convert.from_jax``.
 in the latent space; the default False is the paper-faithful baseline).
 A VLM's prefill batch carries ``vision_embeds`` [B, n_vision_tokens, D],
 the context of its cross layers; decode reads their caches instead, which
-``init_cache`` sizes to ``n_vision_tokens``.
+``init_cache`` sizes to ``n_vision_tokens``.  An encoder-decoder model's
+(seamless-m4t) prefill batch carries ``audio_embeds`` [B, S_src, D], which
+its encoder turns into the context of every decoder layer's cross-attention;
+its ``init_cache`` sizes the cross caches to ``ctx_len`` (``buf_len`` when
+None).
 
-The model runs on the card unless ``device="cpu"`` is asked for.  The
-dense, MoE (MLA too), RWKV and VLM families run; the hybrid (hymba) and
-encoder-decoder families and ``train_loss`` wait for their slices.
+The model runs on the card unless ``device="cpu"`` is asked for.  Every
+family of the registry runs (dense, MoE with MLA too, RWKV, hybrid hymba,
+VLM, encoder-decoder); ``train_loss`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -90,10 +94,49 @@ def _build_decoder_model(cfg: ModelConfig, device: torch.device) -> Model:
                  init_cache)
 
 
+# ----------------------------------------------------------------------------
+# encoder-decoder family (seamless-m4t): stubbed audio frontend
+
+
+def _build_encdec_model(cfg: ModelConfig, device: torch.device) -> Model:
+    def init_params(generator):
+        params = decoder.init_decoder(generator, cfg, device)
+        params["encoder"] = decoder.init_encoder(generator, cfg, device)
+        return params
+
+    def train_loss(params, batch):
+        raise NotImplementedError("train_loss waits for the training slice")
+
+    def prefill(params, batch):
+        enc = decoder.encoder_stack(params["encoder"], cfg,
+                                    batch["audio_embeds"])
+        x = common.embed(params["embed"], cfg, batch["tokens"])
+        x, caches = decoder.decoder_stack(params, cfg, x, mode="prefill",
+                                          ctx=enc)
+        logits = common.unembed(params["embed"], cfg, x[:, -1:, :])
+        return logits[:, 0, :], caches
+
+    def decode(params, caches, batch):
+        x = common.embed(params["embed"], cfg, batch["token"])
+        x, caches = decoder.decoder_stack(params, cfg, x, mode="decode",
+                                          caches=caches, pos=batch["pos"],
+                                          ctx=None)
+        logits = common.unembed(params["embed"], cfg, x)
+        return logits[:, 0, :], caches
+
+    def init_cache(batch_size, buf_len, ctx_len=None, device=device):
+        # ctx_len = the encoded source length (buf_len when None, as in JAX)
+        return decoder.init_decoder_cache(
+            cfg, batch_size, buf_len,
+            ctx_len if ctx_len is not None else buf_len, device)
+
+    return Model(cfg, device, init_params, train_loss, prefill, decode,
+                 init_cache)
+
+
 def build_model(arch_or_cfg, device=None) -> Model:
     cfg = (arch_or_cfg if isinstance(arch_or_cfg, ModelConfig)
            else get_config(arch_or_cfg))
     if cfg.family == "audio":
-        raise NotImplementedError(
-            "the encoder-decoder family waits for the encoder-decoder slice")
+        return _build_encdec_model(cfg, resolve_device(device))
     return _build_decoder_model(cfg, resolve_device(device))

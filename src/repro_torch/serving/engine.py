@@ -51,14 +51,18 @@ class InferenceEngine:
 
     def generate(self, batch: dict, n_tokens: int, generator=None):
         """batch: {"tokens": [B, S] int} on the model's device, and for a
-        VLM ``"vision_embeds"`` [B, n_vision_tokens, D] in the model's dtype,
-        which goes to ``prefill`` with the tokens.  Returns tokens
-        [B, n_tokens] (int32)."""
+        VLM ``"vision_embeds"`` [B, n_vision_tokens, D] (an encoder-decoder
+        model: ``"audio_embeds"`` [B, S_src, D]) in the model's dtype, which
+        goes to ``prefill`` with the tokens; the cross caches are sized to
+        S_src.  Returns tokens [B, n_tokens] (int32)."""
         tokens = batch["tokens"]
         B, prompt_len = tokens.shape
         t0 = time.perf_counter()
         logits, caches = self.model.prefill(self.params, batch)
-        caches = pad_cache(caches, self.model.init_cache(B, self.max_len))
+        ctx_len = (batch["audio_embeds"].shape[1]
+                   if "audio_embeds" in batch else None)
+        caches = pad_cache(caches, self.model.init_cache(B, self.max_len,
+                                                         ctx_len))
         _sync(logits)
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefill_tokens += B * prompt_len

@@ -67,6 +67,28 @@ def test_subprocess_simulation_loads_no_jax_and_no_reference():
     assert proc.stdout.splitlines()[-1] == "ISOLATED"
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "seamless-m4t-medium"])
+def test_subprocess_serving_loads_no_jax_and_no_reference(arch):
+    """The hybrid and encoder-decoder families serve through the launcher
+    with nothing of JAX or the JAX package loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.serve import main\n"
+        f"stats = main(['--arch', '{arch}', '--device', 'cpu', "
+        "'--requests', '1', '--gen', '2'])\n"
+        "assert stats.decoded_tokens == 4, stats\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ISOLATED"
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

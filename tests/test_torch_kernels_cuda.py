@@ -186,7 +186,9 @@ def no_tf32(card):
     # non-causal with a window; rows not a multiple of the CTA's
     (2, 150, 25, 5, 64, True, None), (1, 97, 25, 5, 128, True, 40),
     (1, 300, 8, 2, 128, True, 16), (2, 100, 10, 5, 80, False, 24),
-    (1, 77, 8, 2, 16, True, None), (1, 45, 8, 2, 256, True, 20)])
+    (1, 77, 8, 2, 16, True, None), (1, 45, 8, 2, 256, True, 20),
+    # seamless-m4t's encoder and cross prefill: G = 1, hd 64, non-causal
+    (1, 1024, 16, 16, 64, False, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(no_tf32, B, S, H, K, hd, causal,
                                             window, dtype):

@@ -357,21 +357,26 @@ def test_chip_smoke_loop_gate_catches_a_diverging_refresh(torch_cd):
 
     cache = types.SimpleNamespace(profile_reclaims=3)
     rcs = {"numpy": seeded(4.0), "card": seeded(4.0), "cpu": seeded(4.0)}
-    line = smoke.hold_loop("t", torch_cd, rcs, [cache], online=True)
+
+    def report(rc):   # the CPU run's, as its forked child sends it back
+        return {"refreshes": rc.refreshes, "scales": smoke.scales(torch_cd,
+                                                                  rc)}
+
+    line = smoke.hold_loop("t", torch_cd, rcs, [cache], online=True,
+                           cpu=report(rcs["cpu"]))
     assert line["refreshes"] == {"card": 1, "cpu": 1, "numpy": 1}
     with pytest.raises(SystemExit, match="overlay scales differ"):
-        smoke.hold_loop("t", torch_cd, dict(rcs, cpu=seeded(4.0000001)),
-                        [cache], online=True)
+        smoke.hold_loop("t", torch_cd, rcs, [cache], online=True,
+                        cpu=report(seeded(4.0000001)))
     with pytest.raises(SystemExit, match="refreshes"):
-        smoke.hold_loop("t", torch_cd, dict(
-            rcs, cpu=recharacterize.OnlineRecharacterizer()), [cache],
-            online=True)
+        smoke.hold_loop("t", torch_cd, rcs, [cache], online=True,
+                        cpu=report(recharacterize.OnlineRecharacterizer()))
     with pytest.raises(SystemExit, match="did not run"):
         smoke.hold_loop("t", torch_cd, rcs,
                         [types.SimpleNamespace(profile_reclaims=0)],
-                        online=True)
+                        online=True, cpu=report(rcs["cpu"]))
     with pytest.raises(SystemExit, match="share"):
         smoke.hold_loop("t", torch_cd, dict(rcs, cpu=rcs["card"]), [cache],
-                        online=True)
+                        online=True, cpu=report(rcs["card"]))
     assert smoke.hold_loop("t", torch_cd, dict.fromkeys(rcs), [cache],
-                           online=False) == {}
+                           online=False, cpu=None) == {}

@@ -1,14 +1,17 @@
-"""``chip_smoke.py``'s MLA and VLM serving phases (4d, 4e) rehearsed on the
-CPU at the reduced configs' size.
+"""``chip_smoke.py``'s MLA, VLM, hybrid and encoder-decoder serving phases
+(4d-4g) rehearsed on the CPU at the reduced configs' size.
 
 The phases are the functions the card run calls (``serve_mla``,
-``serve_vlm``), with the serving sizes cut (2 requests of batch 2 x 16 +
-4 tokens) and the CUDA calls of the harness made no-ops.  On CPU tensors
-the kernel wrappers run their plain versions and count nothing, so each
-wrapper is replaced by one that counts its calls: the phases' own launch
-checks (the router alone on the MLA path; flash in prefill and decode
-attention in decode on the VLM's self layers, none on its cross layers)
-and their parity holds then run as on the card."""
+``serve_vlm``, ``serve_hymba``, ``serve_encdec``), with the serving sizes
+cut (2 requests of batch 2 x 16 + 4 tokens) and the CUDA calls of the
+harness made no-ops.  On CPU tensors the kernel wrappers run their plain
+versions and count nothing, so each wrapper is replaced by one that counts
+its calls: the phases' own launch checks (the router alone on the MLA path;
+flash in prefill and decode attention in decode on the VLM's self layers,
+none on its cross layers; both on every hymba layer; on seamless-m4t, flash
+on the encoder, cross and self layers, non-causal and causal counted apart,
+and decode attention on the self layers) and their parity holds then run as
+on the card."""
 
 import dataclasses
 import importlib.util
@@ -98,5 +101,41 @@ def test_vlm_phase_runs_on_the_cpu(rehearsal, capsys):
                         "moe_routing": 0, "rwkv_scan": 0}
     out = capsys.readouterr().out
     assert "(2 self-attention, 3 cross-attention)" in out
+    assert out.count("parity ") == 2 and "decode_profile " in out
+    assert profile["arch"] == cfg.name
+
+
+def test_hymba_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 4f on the reduced hymba in bf16 (4 layers, 0 and 3 global, 1
+    and 2 windowed at 32): flash launches 4 x 2 times in prefill and decode
+    attention 4 x 3 x 2 in decode, nothing else; both parity lines hold, and
+    the prefill profile reports the recurrence's share."""
+    cfg = dataclasses.replace(reduced(get_config("hymba-1.5b")), n_layers=4,
+                              global_layers=(0, 3), dtype="bfloat16")
+    launches, profile, prefill = chip_smoke.serve_hymba(cfg, device="cpu")
+    assert launches == {"flash_attention": 8, "decode_attention": 24,
+                        "moe_routing": 0, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert "(2 global, 2 windowed at 32)" in out
+    assert out.count("parity ") == 2 and "decode_profile " in out
+    assert "prefill_profile " in out and "bf16_floor " in out
+    assert profile["arch"] == prefill["arch"] == cfg.name
+    assert prefill["host_s"] > 0 and "mamba_recurrence_share" in prefill
+
+
+def test_encdec_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 4g on the reduced seamless-m4t in bf16 (2 encoder and 2
+    decoder layers, audio as long as the prompt): flash launches (2 + 2 x
+    2) x 2 times in prefill, 4 x 2 of them non-causal and 2 x 2 causal, and
+    decode attention 2 x 3 x 2 in decode (the cross layers' decode on
+    neither kernel)."""
+    cfg = dataclasses.replace(reduced(get_config("seamless-m4t-medium")),
+                              dtype="bfloat16")
+    launches, profile = chip_smoke.serve_encdec(cfg, device="cpu")
+    assert launches == {"flash_attention": 12, "decode_attention": 12,
+                        "moe_routing": 0, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert '"calls": {"causal": 4, "non_causal": 8}' in out
+    assert "2 encoder + 2 decoder layers" in out
     assert out.count("parity ") == 2 and "decode_profile " in out
     assert profile["arch"] == cfg.name
