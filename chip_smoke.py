@@ -59,6 +59,18 @@ Phases, in order; any failure exits non-zero:
        sequence (matmul, softmax, topk + scatter) is timed as context; then
        both of the kernel's designs (decode and prefill) at T on each side
        of the switch-over, each bit-equal, with their device times;
+   (h) the flash backward (``flash_attention_bwd``, three kernels a call)
+       against ``flash_attention_bwd_plain`` at qwen3-4b's training shape
+       [2, 4096, 32, 8, 128] causal, the serving shape, seamless-m4t's
+       [4, 1024, 16, 16, 64] non-causal, the ragged hd-80 shape windowed at
+       256, gemma-like MQA at hd 256 and hymba's G = 5 windowed at 1,024,
+       in f32 (TF32 off) and bf16: dq, dk and dv within ``BWD_REL`` of
+       each one's max |plain|, two calls bit-identical, the profiler's
+       kernels of a call exactly its three, the forward's ``lse`` against
+       ``torch.logsumexp`` of the masked scores (``LSE_TOL``); the kernel's,
+       the plain version's and the backward of SDPA (``enable_gqa``, timed
+       alone) milliseconds, the bound by operations (10 hd flops a visible
+       pair);
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -159,6 +171,24 @@ Phases, in order; any failure exits non-zero:
    decode attention 12 x 31 x 4 times (the cross layers' decode takes the
    XLA-path attention), no routing or WKV launch; its parity in bf16 and
    f32 at full depth and its decode-step profile;
+5a. training: qwen3-4b at full width and depth in bf16 (4.411 B, remat on),
+   3 AdamW steps (the launcher's schedule rule) through ``make_train_step``
+   on batches of 2 x 4,096 tokens from the ``DataLoader`` copy (seed 0);
+   each step's launches counted from 0 and held to 72 flash forwards (36
+   and their remat recomputation) and 36 backward calls, no decode, WKV
+   or routing launch; step seconds, tokens/s, peak memory; a fourth step
+   profiled (device ms by kind of kernel, the optimizer's, the loss chunks'
+   alone, idle share); holds (i) step 0's loss against the plain
+   attention's, relative 1e-2, (ii) one f32 step (TF32 off) of the model
+   cut to 4 layers on the kernels against the plain versions
+   (``held_f32_step``: loss, every leaf's grad, m, v; the params through
+   Adam's first step), (iii) resume equivalence at the reduced size, bit
+   for bit (``resume_check``);
+5b. training: seamless-m4t-medium at full width and depth (12 + 12
+   layers, 0.978 B), batch 4 x 1,024 with ``audio_embeds`` [4, 1,024,
+   1,024] from the launcher's stub, 3 steps; each step 72 flash forwards,
+   48 of them non-causal (the encoder's and the cross layers'), and 36
+   backward calls, 24 non-causal; holds (i) and (ii) at full depth;
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -179,6 +209,7 @@ import subprocess
 import sys
 import time
 import types
+from contextlib import ExitStack
 from pathlib import Path
 from unittest import mock
 
@@ -222,6 +253,29 @@ DECODE_HOLDS = ((4, 1064, 32, 8, 128, 1), (4, 1064, 32, 8, 128, 1025),
                 (4, 1024, 25, 5, 64, 1024), (4, 1064, 25, 5, 64, 1025),
                 (4, 1064, 32, 8, 128, 1024))
 DECODE_REPEATS = 3        # calls that must agree bit for bit
+# the flash backward (B, S, H, K, hd, window, causal): qwen3-4b's training
+# shape (the JAX package's train_4k length, batch cut to 2), the serving
+# shape, seamless-m4t's encoder and cross shape (non-causal) and its
+# decoder's self-attention (causal), a ragged hd-80 shape windowed at 256,
+# gemma-like MQA at hd 256, hymba's G = 5 windowed
+FLASH_BWD_HOLDS = ((2, 4096, 32, 8, 128, None, True),
+                   (4, 1024, 32, 8, 128, None, True),
+                   (4, 1024, 16, 16, 64, None, False),
+                   (4, 1024, 16, 16, 64, None, True),
+                   (4, 1000, 32, 8, 80, 256, True),
+                   (2, 2048, 8, 1, 256, None, True),
+                   (4, 1024, 25, 5, 64, 1024, True))
+# dq, dk, dv of the backward kernel against its plain version, per tensor:
+# max |delta| <= BWD_REL * max |plain|.  f32: the same f32 math summed in
+# another order (the serving logit bound, 1e-4); bf16: both round their f32
+# result once, so at most one bf16 ulp of the largest element, 2**-7
+BWD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the forward's lse against logsumexp of the masked scores (rtol, atol): f32
+# sums of exact products (bf16) or f32 FMAs in another order
+LSE_TOL = (2e-5, 2e-5)
+BWD_KERNELS = ("flash_attention_bwd_dot_kernel",
+               "flash_attention_bwd_dkdv_kernel",
+               "flash_attention_bwd_dq_kernel")
 # (rtol, atol) of a kernel against its plain version: the same f32 math
 # summed in another order; in bf16 both round their f32 result once
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
@@ -258,6 +312,24 @@ VLM_ARCH, VLM_GATE, VLM_F32_LAYERS = "llama-3.2-vision-11b", 0.5, 10
 # the hybrid and encoder-decoder serving cells, nothing cut (f32 parity on
 # every layer too)
 HYMBA_ARCH, ENCDEC_ARCH = "hymba-1.5b", "seamless-m4t-medium"
+# the training cells: qwen3-4b at full width and depth, batch 2 x 4,096
+# (the JAX package's train_4k length, its batch cut to one card), its f32
+# step held on its first 4 layers; seamless-m4t-medium at full width and
+# depth, batch 4 x 1,024 with audio of the same length, its f32 step held
+# at full depth; 3 AdamW steps each with the launcher's schedule rule
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_F32_LAYERS = "qwen3-4b", 2, 4096, 4
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 4, 1024
+TRAIN_STEPS, TRAIN_LR = 3, 1e-3
+# (i) step 0's loss on the kernels against the plain attention's, bf16.
+# A random model's loss is about ln V whatever attention returns, so this
+# catches only a NaN or gross breakage; the bf16 kernels of a step are held
+# by phase 2h (the forward with its lse and the backward, at the training
+# shapes) and the f32 step by (ii)
+TRAIN_LOSS_REL = 1e-2
+# (ii) one f32 step on the kernels against the plain versions: the loss
+# (relative), each leaf's grad and m (max |delta| / max |plain|); v is
+# quadratic in the grad, so a grad held at 1e-4 moves it up to 2e-4
+TRAIN_F32_REL = {"loss": 1e-5, "grad": 1e-4, "m": 1e-4, "v": 2e-4}
 # the router (T, D, E, top_k, case): the phi3.5 prefill (4 x 1,024 tokens),
 # one decode step, one token, a ragged shape, the deepseek-v2 prefill and
 # decode step, a probability that underflows (one logit leads by > 110) and
@@ -1503,6 +1575,121 @@ def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
     return r
 
 
+def sdpa_mask(S, window, causal):
+    """The boolean mask SDPA needs for a windowed shape (None otherwise:
+    ``is_causal`` or no mask)."""
+    import torch
+    if window is None:
+        return None
+    pos = torch.arange(S, device="cuda")
+    ok = pos[:, None] - pos[None, :] < window
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    return ok
+
+
+def hold_flash_bwd(B, S, H, K, hd, window, causal, dtype_name, rate):
+    """Phase 2h at one shape: the forward kernel as a training step calls
+    it (writing its lse), its output within ``ATTN_TOL`` of
+    ``flash_attention_plain`` and its lse against ``torch.logsumexp`` of
+    the masked scores; ``flash_attention_bwd``
+    against ``flash_attention_bwd_plain`` on the same (q, k, v, out, lse,
+    dout), dq, dk and dv each within ``BWD_REL`` of its max |plain|; two
+    calls bit-identical; the profiler's kernels of one call exactly the
+    three of ``BWD_KERNELS``, once each.  Times: the kernel (device and per
+    call), the plain version and the library yardstick, the backward of
+    ``scaled_dot_product_attention`` with ``enable_gqa`` timed alone (its
+    forward done once, ``retain_graph``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    dtype = getattr(torch, dtype_name)
+    q, k, v = attn_inputs((B, S, H, hd), (B, S, K, hd), dtype, S + hd + 1)
+    rng = np.random.default_rng(S + hd + 2)
+    dout = torch.from_numpy(rng.standard_normal((B, S, H, hd),
+                                                dtype=np.float32)).to(
+        device="cuda", dtype=dtype)
+    label = (f"flash_attention_bwd (B, S, H, K, hd, window, causal)="
+             f"{(B, S, H, K, hd, window, causal)} {dtype_name}")
+    out, lse = fa._launch_forward(q, k, v, causal, window, True)
+    out_plain, lse_plain = fa.flash_attention_plain(
+        q, k, v, causal=causal, window=window, return_lse=True)
+    rtol, atol = ATTN_TOL[dtype_name]
+    out_err = (out.float() - out_plain.float()).abs()
+    if not bool((out_err <= atol + rtol * out_plain.float().abs()).all()):
+        raise SystemExit(f"FAIL {label}: the forward with lse is off the "
+                         f"plain version by up to {float(out_err.max())}")
+    rtol, atol = LSE_TOL
+    lse_err = (lse - lse_plain).abs()
+    if int((lse_err > atol + rtol * lse_plain.abs()).sum()):
+        raise SystemExit(f"FAIL {label}: the forward's lse is off "
+                         f"logsumexp by up to {float(lse_err.max())}")
+    del out_plain, lse_plain
+    inputs = (q, k, v, out, lse, dout)
+
+    def kernel():
+        return fa.flash_attention_bwd(*inputs, causal=causal, window=window)
+
+    def plain():
+        return fa.flash_attention_bwd_plain(*inputs, causal=causal,
+                                            window=window)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    rel = [float((a.float() - b.float()).abs().max())
+           / float(b.float().abs().max()) for a, b in zip(got, want)]
+    max_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    if not finite or max(rel) > BWD_REL[dtype_name]:
+        raise SystemExit(f"FAIL {label}: dq, dk, dv off the plain version "
+                         f"by {rel} of max |plain| (bound "
+                         f"{BWD_REL[dtype_name]}), finite {finite}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"FAIL {label}: two calls differ")
+    del got, again, want
+    # the runtime side sees every launch; the device side names them (it
+    # may miss one near a trace's start, so its counts are not held)
+    device, api = kernels_per_call(kernel, reps=3)
+    if (api != len(BWD_KERNELS) or len(device) != len(BWD_KERNELS)
+            or any(not any(k in name for name in device)
+                   for k in BWD_KERNELS)):
+        raise SystemExit(f"FAIL {label}: {api} launches a call, kernels "
+                         f"{device}")
+    names = []
+    r = {"rel_err": dict(zip(("dq", "dk", "dv"), rel)),
+         "max_abs_err": max_abs,
+         "bound_rel": BWD_REL[dtype_name],
+         "out_max_abs_err": float(out_err.max()),
+         "lse_max_abs_err": float(lse_err.max()),
+         "device_ms": device_ms(kernel, "flash_attention_bwd_", reps=5,
+                                names=names),
+         "ms": time_ms(kernel, reps=5, batch=2),
+         "plain_ms": time_ms(plain, reps=3, batch=1)}
+    ok = sdpa_mask(S, window, causal)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                       is_causal=causal and ok is None,
+                                       enable_gqa=True)
+    do = dout.transpose(1, 2)
+    r["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True),
+        reps=5, batch=2)
+    del o, qt, kt, vt
+    esize = q.element_size()
+    r["bound_ms"], r["bound_by"] = attn_bound(
+        10 * B * H * visible_pairs(S, S, causal, window) * hd,
+        esize * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S,
+        dtype_name, rate)
+    r["kernels"] = names
+    print(f"hold {label}: within {BWD_REL[dtype_name]} of max |plain|, two "
+          "calls bit-identical, three kernels a call, " + json.dumps(r),
+          flush=True)
+    torch.cuda.empty_cache()
+    return r
+
+
 def rwkv_inputs(B, S, H, hd, dtype, seed, with_state):
     """r, k, v, w [B, S, H, hd] in ``dtype`` and u [H, hd] f32 on the card,
     standard normal from a numpy seed (w = exp(-exp(.)) in (0, 1), as the
@@ -1796,10 +1983,7 @@ def traced_generate(model, params, toks):
 def plain_run(model, params, toks, plains):
     """``traced_generate`` with ``plains`` patched in (the names the model
     looks the kernels up by, to their plain versions)."""
-    from contextlib import ExitStack
-    with ExitStack() as stack:
-        for target, plain in plains.items():
-            stack.enter_context(mock.patch(target, plain))
+    with patched(plains):
         return traced_generate(model, params, toks)
 
 
@@ -1949,11 +2133,8 @@ def routed_generate(model, params, toks, route, patches):
     """``traced_generate`` with the router ``route`` (its kernel or plain
     version) recording every call's mask and probabilities, and the names
     of ``patches`` patched: (logits, tokens, routing log)."""
-    from contextlib import ExitStack
     log = []
-    with ExitStack() as stack:
-        for name, fn in patches.items():
-            stack.enter_context(mock.patch(name, fn))
+    with patched(patches) as stack:
         stack.enter_context(mock.patch("repro_torch.models.layers.moe_routing",
                                        routing_recorder(route, log)))
         logits, out = traced_generate(model, params, toks)
@@ -2503,6 +2684,421 @@ def serve_encdec(ecfg, device=None):
     return launches, profile
 
 
+def train_wrappers():
+    """The kernel wrappers a training step is counted by: the flash
+    forward and backward, and the three that must not launch."""
+    from repro_torch.kernels import flash_attention as fa
+    return dict(kernel_wrappers(), flash_attention_bwd=fa.flash_attention_bwd)
+
+
+def plain_launch_forward(q, k, v, causal, window, with_lse):
+    """``flash_attention_plain`` in the place of the forward kernel's
+    launch: (out, lse or None), launching nothing."""
+    from repro_torch.kernels import flash_attention as fa
+    if with_lse:
+        return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    return fa.flash_attention_plain(q, k, v, causal=causal,
+                                    window=window), None
+
+
+def attention_plain_grad():
+    """The flash kernels' plain versions, forward and backward, in the
+    places where ``flash_attention`` and ``FlashAttentionFn`` launch them:
+    the same wiring (saved tensors, masks, casts) on the plain versions."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"repro_torch.kernels.flash_attention._launch_forward":
+            plain_launch_forward,
+            "repro_torch.kernels.flash_attention.flash_attention_bwd":
+            fa.flash_attention_bwd_plain}
+
+
+def patched(patches):
+    """Each name of ``patches`` patched to its value (a kernel's plain
+    version, a recorder), as one context; the patches are entered at
+    once."""
+    stack = ExitStack()
+    for target, value in patches.items():
+        stack.enter_context(mock.patch(target, value))
+    return stack
+
+
+def train_batches(cfg, B, S, n, device):
+    """``n`` batches of the launcher's ``DataLoader`` copy (seed 0) and its
+    frontend stubs, on ``device`` in the model's dtype."""
+    from repro_torch.launch.train import extra_fn_of, to_device
+    from repro_torch.training.data import DataLoader
+    dl = DataLoader(cfg.vocab, B, S, seed=0, extra_fn=extra_fn_of(cfg))
+    try:
+        return [to_device(next(dl), cfg, device) for _ in range(n)]
+    finally:
+        dl.close()
+
+
+def mask_counts():
+    """Recorders of the flash calls by mask: the forward's (on the name the
+    model looks it up by) and the backward's (``FlashAttentionFn``'s), and
+    their counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common
+    counts = {"forward": {"causal": 0, "non_causal": 0},
+              "backward": {"causal": 0, "non_causal": 0}}
+    flash, backward = common.flash_attention, fa.FlashAttentionFn.backward
+
+    def fwd(q, k, v, *, causal=True, window=None):
+        counts["forward"]["causal" if causal else "non_causal"] += 1
+        return flash(q, k, v, causal=causal, window=window)
+
+    def bwd(ctx, dout):
+        counts["backward"]["causal" if ctx.causal else "non_causal"] += 1
+        return backward(ctx, dout)
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(common, "flash_attention", fwd))
+    stack.enter_context(mock.patch.object(fa.FlashAttentionFn, "backward",
+                                          staticmethod(bwd)))
+    return stack, counts
+
+
+def device_split(prof):
+    """Device ms of a profiled window by kind of kernel, from its names."""
+    from torch.autograd import DeviceType
+    split = {"flash_forward": 0.0, "flash_backward": 0.0, "gemm": 0.0,
+             "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name, ms = e.name.lower(), e.time_range.elapsed_us() / 1e3
+        n += 1
+        if "flash_attention_bwd_" in name:
+            split["flash_backward"] += ms
+        elif "flash_attention_kernel" in name:
+            split["flash_forward"] += ms
+        elif any(k in name for k in ("gemm", "cutlass", "xmma", "cublas",
+                                     "sm90_", "nvjet")):
+            split["gemm"] += ms
+        elif "elementwise" in name or "vectorized" in name:
+            split["elementwise"] += ms
+        elif "reduce" in name or "softmax" in name or "logsumexp" in name:
+            split["reduce"] += ms
+        else:
+            split["other"] += ms
+    return split, n
+
+
+def profiled_step(model, state, batch, opt_cfg):
+    """One training step in two profiled windows, the loss and its
+    gradient, then the optimizer, each synchronised: host seconds, device
+    ms by kind, the optimizer's device ms, kernels, idle share; and the
+    loss chunks alone (``chunked_ce_loss``, forward and backward, on the
+    stack's output), whose kernels are also among the first window's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import common, decoder
+    from repro_torch.models.registry import chunked_ce_loss
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_step import loss_and_grads
+    acts = [ProfilerActivity.CUDA if torch.cuda.is_available()
+            else ProfilerActivity.CPU]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof_grad:
+        loss, grads = loss_and_grads(model, state["params"], batch)
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=acts) as prof_opt:
+        adamw_update(opt_cfg, state["params"], grads, state["opt"])
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    split, n_grad = device_split(prof_grad)
+    opt_split, n_opt = device_split(prof_opt)
+    optimizer_ms = sum(opt_split.values())
+    # the loss chunks alone, on the stack's output for this batch
+    params = state["params"]
+    cfg = model.cfg
+    with torch.no_grad():
+        ctx = (decoder.encoder_stack(params["encoder"], cfg,
+                                     batch["audio_embeds"])
+               if cfg.encdec else None)
+        x = common.embed(params["embed"], cfg, batch["tokens"])
+        x, _ = decoder.decoder_stack(params, cfg, x, mode="train", ctx=ctx)
+    x = x.detach().requires_grad_()
+    with profile(activities=acts) as prof_loss:
+        ce = chunked_ce_loss(params, cfg, x, batch["labels"])
+        torch.autograd.grad(ce, x)
+        torch.cuda.synchronize()
+    del x
+    loss_ms = sum(device_split(prof_loss)[0].values())
+    device = sum(split.values()) + optimizer_ms
+    host_ms = (t2 - t0) * 1e3
+    line = {"arch": cfg.name, "loss": float(loss),
+            "host_ms": host_ms, "grad_host_ms": (t1 - t0) * 1e3,
+            "optimizer_host_ms": (t2 - t1) * 1e3,
+            "device_ms": device if n_grad else None,
+            "device_ms_by_kind": split, "optimizer_device_ms": optimizer_ms,
+            "loss_chunks_device_ms_alone": loss_ms,
+            "kernels": n_grad + n_opt,
+            "idle_share": 1.0 - device / host_ms if n_grad else None}
+    print("train_profile " + json.dumps(line), flush=True)
+    return line
+
+
+def rel_to_max(a, b):
+    """max |a - b| / max |b| in float64 (0 where b is all zeros and a = b)."""
+    d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    m = float(b.double().abs().max()) if b.numel() else 0.0
+    return d / m if m else (0.0 if d == 0.0 else math.inf)
+
+
+def held_f32_step(model, params, batch, opt_cfg, wrappers):
+    """Hold (ii): one f32 step (TF32 off) on the kernels against the same
+    step on the plain versions, from ``params`` (cloned for the kernels):
+    the loss within ``TRAIN_F32_REL["loss"]``, every leaf's grad, m and v
+    within theirs of the leaf's max |plain|.
+
+    The params after the step.  Adam's first step moves an element by
+    lr (u / (|u| + eps) + wd p), u = clip g: about sign(g) lr, and where |u|
+    is within a few eps of 0 the sign and size of that step are not set by
+    the f32 sums.  So an element may be off the plain one by lr * 1e-3 +
+    2 f32 ulps of it, plus lr times the most that u / (|u| + eps) can move
+    when u moves by the grad hold's own bound, tau = clip * 1e-4 * max |g|
+    of its leaf: at most eps tau / (max(|u| - tau, 0) + eps)^2, and 2 (a
+    flipped sign).  Elements over the first part and within the second are
+    printed as excused."""
+    import torch
+    from repro_torch._tree import tree_leaves_with_paths, tree_map
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    from repro_torch.training.train_step import loss_and_grads
+    runs = {}
+    for which in ("kernels", "plain"):     # the plain step updates params
+        p = tree_map(lambda t: t.clone(), params) if which == "kernels" \
+            else params
+        state = {"params": p, "opt": init_opt_state(p)}
+        before = launch_counts(wrappers)
+        if which == "plain":
+            with patched(attention_plain_grad()):
+                loss, grads = loss_and_grads(model, p, batch)
+        else:
+            loss, grads = loss_and_grads(model, p, batch)
+        torch.cuda.synchronize()
+        after = launch_counts(wrappers)
+        moved = {k: after[k] - before[k] for k in after}
+        if (which == "plain") != (not any(moved.values())):
+            raise SystemExit(f"FAIL f32 step {model.cfg.name}: the {which} "
+                             f"run launched {moved}")
+        _, opt, metrics = adamw_update(opt_cfg, p, grads, state["opt"])
+        runs[which] = {"loss": float(loss), "grads": grads, "params": p,
+                       "opt": opt, "lr": float(metrics["lr"]),
+                       "clip": min(1.0, opt_cfg.grad_clip
+                                   / max(float(metrics["grad_norm"]), 1e-9))}
+        del state
+    k, q = runs["kernels"], runs["plain"]
+    lr = q["lr"]
+    worst = {"loss": abs(k["loss"] - q["loss"]) / abs(q["loss"]),
+             "grad": 0.0, "m": 0.0, "v": 0.0}
+    for name, tk, tq in (("grad", k["grads"], q["grads"]),
+                         ("m", k["opt"]["m"], q["opt"]["m"]),
+                         ("v", k["opt"]["v"], q["opt"]["v"])):
+        for (key, a), (_, b) in zip(tree_leaves_with_paths(tk),
+                                    tree_leaves_with_paths(tq)):
+            worst[name] = max(worst[name], rel_to_max(a, b))
+    ulp, eps, clip = torch.finfo(torch.float32).eps, opt_cfg.eps, q["clip"]
+    over = excused = elements = 0
+    worst_param = 0.0
+    for (key, a), (_, b), (_, g) in zip(
+            tree_leaves_with_paths(k["params"]),
+            tree_leaves_with_paths(q["params"]),
+            tree_leaves_with_paths(q["grads"])):
+        d = (a.double() - b.double()).abs()
+        base = lr * 1e-3 + 2 * ulp * b.double().abs()
+        u = clip * g.double().abs()
+        tau = TRAIN_F32_REL["grad"] * float(u.max())
+        moved = torch.clamp(eps * tau / (torch.clamp(u - tau, min=0.0)
+                                         + eps) ** 2, max=2.0)
+        far = d > base
+        bad = d > base + lr * moved
+        over += int(bad.sum())
+        excused += int((far & ~bad).sum())
+        elements += a.numel()
+        worst_param = max(worst_param, float(d.max()) / lr)
+    line = {"arch": model.cfg.name, "layers": model.cfg.n_layers,
+            "dtype": "float32", "loss_kernels": k["loss"],
+            "loss_plain": q["loss"], "rel": worst, "bound": TRAIN_F32_REL,
+            "lr": lr, "param_elements": elements,
+            "params_over": over, "params_excused_near_zero_u": excused,
+            "worst_param_delta_over_lr": worst_param}
+    print("train_f32_step " + json.dumps(line), flush=True)
+    if over or any(worst[key] > TRAIN_F32_REL[key] for key in worst):
+        raise SystemExit(f"FAIL f32 step {model.cfg.name}: {line}")
+    return line
+
+
+def resume_check(arch, device=None):
+    """Hold (iii) at the tests' reduced size: three steps straight against
+    two steps, a checkpoint, a restore and the third step; every leaf of
+    the state and the third step's loss bit-equal."""
+    import tempfile
+    import torch
+    from repro_torch._tree import tree_leaves_with_paths
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg, device=device)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=20)
+    step_fn = make_train_step(model, opt_cfg)
+    bs = train_batches(cfg, 4, 16, 3, model.device)
+
+    def fresh():
+        return init_train_state(model, torch.Generator(device=model.device)
+                                .manual_seed(0), opt_cfg)
+
+    straight = fresh()
+    for b in bs:
+        straight, m_straight = step_fn(straight, b)
+    state = fresh()
+    for b in bs[:2]:
+        state, _ = step_fn(state, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save(tmp, 2, state)
+        restored = checkpoint.restore(tmp, state)
+    restored, m_resumed = step_fn(restored, bs[2])
+    torch.cuda.synchronize()
+    differ = [key for (key, a), (_, b) in zip(
+        tree_leaves_with_paths(straight), tree_leaves_with_paths(restored))
+        if not torch.equal(a, b)]
+    same_loss = torch.equal(m_straight["loss"], m_resumed["loss"])
+    print("train_resume " + json.dumps(
+        {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+         "steps": 3, "checkpoint_at": 2, "loss": float(m_resumed["loss"]),
+         "bit_equal": not differ and same_loss, "leaves_differing": differ}),
+        flush=True)
+    if differ or not same_loss:
+        raise SystemExit(f"FAIL resume {cfg.name}: {len(differ)} leaves "
+                         "differ from the uninterrupted run")
+
+
+def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
+    """Phases 5a-5b on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
+    (the launcher's schedule rule) through ``make_train_step`` on batches
+    of the launcher's ``DataLoader`` copy, each step's launches counted
+    from 0 and held: 2 L flash forwards (remat recomputes each layer's) and
+    L backward calls, counted by mask as well, no decode, WKV or routing
+    launch; step seconds, tokens/s, peak memory; one more profiled step.
+    Holds (i) step 0's loss against the plain attention's (forward, no
+    grad), (ii) ``held_f32_step`` on ``f32_cfg`` (its params drawn from
+    seed 0 after the bf16 state is freed), and with ``resume`` (iii)
+    ``resume_check``.  Returns the flash launches of the counted steps."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models.decoder import build_layout
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    wrappers = train_wrappers()
+    model = build_model(cfg, device=device)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, TRAIN_STEPS // 10),
+                          total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=model.device)
+                             .manual_seed(0), opt_cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    E = cfg.encdec.n_enc_layers if cfg.encdec else 0
+    L = cfg.n_layers
+    self_layers = sum(g.n for g in build_layout(cfg))
+    cross_layers = L if cfg.encdec else 0
+    print(f"train params: {cfg.name} {cfg.dtype}, "
+          f"{f'{E} encoder + ' if E else ''}{L} layers x d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, remat "
+          f"{cfg.remat}, state {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB in {time.perf_counter() - t0:.1f} s; batch {B} x {S}",
+          flush=True)
+    batches = train_batches(cfg, B, S, TRAIN_STEPS + 1, model.device)
+    # (i) step 0's loss with the plain attention, forward only
+    with torch.no_grad(), patched(attention_plains()):
+        plain_loss = float(model.train_loss(state["params"], batches[0]))
+    calls = E + self_layers + cross_layers      # flash calls a forward
+    non_causal = E + cross_layers
+    want = {"flash_attention": 2 * calls if cfg.remat else calls,
+            "flash_attention_bwd": calls, "decode_attention": 0,
+            "moe_routing": 0, "rwkv_scan": 0}
+    want_masks = {"forward": {"causal": want["flash_attention"]
+                              * (calls - non_causal) // calls,
+                              "non_causal": want["flash_attention"]
+                              * non_causal // calls},
+                  "backward": {"causal": calls - non_causal,
+                               "non_causal": non_causal}}
+    step_fn = make_train_step(model, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    totals = {k: 0 for k in wrappers}
+    for step, batch in enumerate(batches[:TRAIN_STEPS]):
+        before = launch_counts(wrappers)
+        stack, masks = mask_counts()
+        t_step = time.perf_counter()
+        with stack:
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t_step
+        got = {k: v - before[k] for k, v in launch_counts(wrappers).items()}
+        for k, v in got.items():
+            totals[k] += v
+        print("train_step " + json.dumps({
+            "arch": cfg.name, "step": step, "loss": loss,
+            "lr": float(metrics["lr"]),
+            "grad_norm": float(metrics["grad_norm"]), "step_s": step_s,
+            "tokens_per_s": B * S / step_s, "launches": got,
+            "flash_calls_by_mask": masks,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}),
+            flush=True)
+        if got != want or masks != want_masks:
+            raise SystemExit(f"FAIL train {cfg.name} step {step}: launches "
+                             f"{got} by mask {masks}, expected {want}, "
+                             f"{want_masks}")
+        if not math.isfinite(loss):
+            raise SystemExit(f"FAIL train {cfg.name}: loss {loss}")
+        if step == 0:
+            rel = abs(loss - plain_loss) / abs(plain_loss)
+            print("train_loss_hold " + json.dumps(
+                {"arch": cfg.name, "dtype": cfg.dtype, "loss_kernels": loss,
+                 "loss_plain_attention": plain_loss, "rel": rel,
+                 "bound": TRAIN_LOSS_REL}), flush=True)
+            if rel > TRAIN_LOSS_REL:
+                raise SystemExit(f"FAIL train {cfg.name}: step 0's loss "
+                                 f"{loss} against {plain_loss}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile = profiled_step(model, state, batches[TRAIN_STEPS], opt_cfg)
+    print("training " + json.dumps({
+        "arch": cfg.name, "dtype": cfg.dtype, "steps": TRAIN_STEPS,
+        "batch": B, "seq": S, "launches": totals,
+        "peak_memory_gb": peak}), flush=True)
+    del state, batches
+    torch.cuda.empty_cache()
+    # (ii) one f32 step, kernels against plain versions
+    model32 = build_model(f32_cfg, device=model.device)
+    params32 = model32.init_params(torch.Generator(device=model.device)
+                                   .manual_seed(0))
+    batch32 = train_batches(f32_cfg, B, S, 1, model.device)[0]
+    held_f32_step(model32, params32, batch32, opt_cfg, wrappers)
+    del params32, batch32
+    torch.cuda.empty_cache()
+    if resume:
+        resume_check(cfg.name, device=device)
+    return totals, profile, peak
+
+
 def phase_done(name, t0):
     """Print a phase's seconds on a line of its own; the next phase's
     start."""
@@ -2658,6 +3254,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = phase_done("2f (router)", t_phase)
 
+    # 2h. the flash backward against its plain version, the forward's lse
+    bwd_holds = {shape + (dtype_name,): hold_flash_bwd(*shape, dtype_name,
+                                                       rate)
+                 for dtype_name in ("float32", "bfloat16")
+                 for shape in FLASH_BWD_HOLDS}
+    t_phase = phase_done("2h (flash backward)", t_phase)
+
     # 3, 3f-3g. the scheduling path at full size, drift, the comparison
     sched = scheduling_path()
     fleet = sched.fleet
@@ -2810,6 +3413,21 @@ def main() -> int:
     encdec_launches, encdec_profile = serve_encdec(get_config(ENCDEC_ARCH))
     t_phase = phase_done("4g (seamless-m4t-medium)", t_phase)
 
+    # 5a-5b. training at full width: qwen3-4b (its f32 step on 4 layers,
+    # resume equivalence at the reduced size), seamless-m4t-medium (its f32
+    # step at full depth)
+    tcfg = get_config(TRAIN_ARCH)
+    train_launches, train_profile, train_peak = train_cell(
+        tcfg, TRAIN_BATCH, TRAIN_SEQ,
+        dataclasses.replace(tcfg, n_layers=TRAIN_F32_LAYERS, dtype="float32"),
+        resume=True)
+    t_phase = phase_done(f"5a (train {TRAIN_ARCH})", t_phase)
+    ecfg = get_config(ENCDEC_ARCH)
+    etrain_launches, etrain_profile, etrain_peak = train_cell(
+        ecfg, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ,
+        dataclasses.replace(ecfg, dtype="float32"))
+    t_phase = phase_done(f"5b (train {ENCDEC_ARCH})", t_phase)
+
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
     print("launch floor: " + json.dumps(
@@ -2900,6 +3518,9 @@ def main() -> int:
                  VLM_ARCH: vlm_launches[kname],
                  HYMBA_ARCH: hymba_launches[kname],
                  ENCDEC_ARCH: encdec_launches[kname]}
+        if kname == "flash_attention":   # the training steps' forwards
+            paths.update({f"train {TRAIN_ARCH}": train_launches[kname],
+                          f"train {ENCDEC_ARCH}": etrain_launches[kname]})
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
@@ -2910,6 +3531,25 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "shape": shape, "dtype": "bfloat16"})
+    # the flash backward at qwen3-4b's training shape in bf16, from 2h; its
+    # launches over the two training paths' counted steps
+    shape = (TRAIN_BATCH, TRAIN_SEQ, tcfg.n_heads, tcfg.n_kv_heads,
+             tcfg.head_dim, None, True)
+    r = bwd_holds[shape + ("bfloat16",)]
+    paths = {f"train {TRAIN_ARCH}": train_launches["flash_attention_bwd"],
+             f"train {ENCDEC_ARCH}": etrain_launches["flash_attention_bwd"]}
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/training/train_step.py:40 (no Pallas "
+                    "kernel: jax.value_and_grad through the XLA attention "
+                    "of src/repro/models/common.py:188)",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(h["max_abs_err"] for h in bwd_holds.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "device_ms": r["device_ms"], "shape": list(shape[:5]),
+        "dtype": "bfloat16", "kernels_per_call": 3})
     # the WKV scan at the RWKV serving path's shapes (its inputs are f32 in
     # the model whatever the params' dtype), from 2e: the prefill and, under
     # "decode_step", one decode step on the cache's state
@@ -2979,6 +3619,14 @@ def main() -> int:
     print(f"prefill {HYMBA_ARCH}: " + json.dumps(
         {k: hymba_prefill[k] for k in ("host_s", "device_ms", "idle_share",
                                        "mamba_recurrence_share")}))
+    for line, peak in ((train_profile, train_peak),
+                       (etrain_profile, etrain_peak)):
+        print(f"train step {line['arch']}: " + json.dumps(
+            {**{k: line[k] for k in ("host_ms", "device_ms", "idle_share",
+                                     "device_ms_by_kind",
+                                     "optimizer_device_ms",
+                                     "loss_chunks_device_ms_alone")},
+             "peak_memory_gb": peak}))
     phase_done("7 (launch floor, kernels at the paths' shapes)", t_phase)
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,8 +1,9 @@
 """Nested dicts and lists of tensors: the port's stand-in for ``jax.tree``.
 
 The port's params and caches keep the JAX package's structure (dicts of
-leaves, a list of layer groups), so these two functions cover what the JAX
-package does with ``jax.tree.map`` and ``jax.tree.leaves``.
+leaves, a list of layer groups), so these functions cover what the JAX
+package does with ``jax.tree.map``, ``jax.tree.leaves`` and
+``jax.tree_util.tree_flatten_with_path``.
 """
 
 from __future__ import annotations
@@ -27,3 +28,18 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_leaves_with_paths(tree, prefix=""):
+    """(path, leaf) pairs in ``jax.tree_util.tree_flatten_with_path``'s
+    order (dict keys sorted) with its key strings joined by "/", as the JAX
+    package's checkpoints name leaves: ``['params']/['groups']/[0]/['wq']``."""
+    if isinstance(tree, dict):
+        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    return [pair for key, v in items
+            for pair in tree_leaves_with_paths(
+                v, f"{prefix}/{key}" if prefix else key)]

@@ -93,6 +93,21 @@ def build_all() -> None:
         load(name)
 
 
+def refuse_grad(what: str, waits_for: str, *tensors) -> None:
+    """Raise where a kernel that has no backward would be asked for a
+    gradient: grad mode on and an input on the card that requires grad.
+    Its output would be cut off from the graph, so the parameters upstream
+    would silently get no gradient.  (On the CPU the plain version runs,
+    which autograd differentiates.)"""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.is_cuda and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no backward kernel: a gradient through it waits for "
+            f"{waits_for}")
+
+
 def launch(name: str, fn_name: str, argtypes, err_fn_name: str, *args):
     """Call the C function ``fn_name`` of ``csrc/<name>.cu`` (its argument
     types set on first use), which launches on the stream it is given and

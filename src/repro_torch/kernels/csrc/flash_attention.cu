@@ -59,6 +59,14 @@
 // (The window skip is used only when every row's own position is a key,
 // i.e. q_pos < Sk.)
 //
+// Both write each row's log-sum-exp of the scaled, masked scores, in
+// natural-log units, to `lse` [B, H, Sq] f32 when the pointer is not null
+// (training: the backward, flash_attention_bwd.cu, recomputes
+// P = exp(s - lse) from it); serving passes null.  Whether they write it is
+// a template flag (LSE), so the serving instances are the kernels without
+// it.  The mma kernel's running max is in the log2 domain, so its lse is
+// m ln 2 + ln l.
+//
 // Bound.  Operations: 4 * hd flops per visible (query head, key) pair at
 // the card's dense bf16 tensor-core peak, 989 TFLOP/s (67 TFLOP/s f32
 // outside the tensor cores): 34.4 GFLOP, 0.0348 ms at the serving shape
@@ -77,6 +85,7 @@
 namespace {
 
 constexpr float kMask = -1.0e30f;
+constexpr float kLn2 = 0.693147180559945309f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // sm_90 opt-in limit per block
 
@@ -167,14 +176,15 @@ __device__ __forceinline__ float quad_sum(float x) {
   return __fadd_rn(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(MmaShape<HD>::kThreads)
 flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-                           int H, int K, int causal, int use_window,
-                           int window, float scale_log2) {
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Sk, int H,
+                           int K, int causal, int use_window, int window,
+                           float scale_log2) {
   using S = MmaShape<HD>;
   constexpr int LDS = S::kLds, BC = S::kKeys, KS = HD / 16, NT = BC / 8;
   constexpr int CH = HD / 8;  // 16-byte chunks in a row
@@ -354,6 +364,9 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
     const int row = wrow + g + 8 * r;
     if (row >= n_rows) continue;
+    if (LSE && t == 0)
+      lse[(static_cast<size_t>(b) * H + kh * G + row % G) * Sq + qpos[r]] =
+          __fadd_rn(__fmul_rn(m[r], kLn2), logf(denom));
     __nv_bfloat16* out =
         o + ((static_cast<size_t>(b) * Sq + qpos[r]) * H + kh * G + row % G) *
                 HD;
@@ -389,13 +402,14 @@ constexpr int fma_smem_bytes() {
               kFmaRows * (kFmaKeys + 1));
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_attention_kernel_fma(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int Sq, int Sk, int H, int K, int causal,
-                           int use_window, int window, float scale) {
+                           float* __restrict__ lse, int Sq, int Sk, int H,
+                           int K, int causal, int use_window, int window,
+                           float scale) {
   constexpr int QS = HD + 4;        // padded row stride of the Q and K tiles
   constexpr int PS = kFmaKeys + 1;  // padded row stride of the P tile
   constexpr int NC = HD / 16;       // accumulator columns per thread
@@ -535,6 +549,9 @@ flash_attention_kernel_fma(const float* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       out[tx + 16 * c] = __fdiv_rn(acc[i][c], denom);
+    if (LSE && tx == 0)
+      lse[(static_cast<size_t>(b) * H + kh * G + g) * Sq + qpos[i]] =
+          __fadd_rn(m[i], logf(denom));
   }
 }
 
@@ -547,25 +564,30 @@ struct Config {
   int threads, rows, smem;
 };
 
-template <int HD>
+template <int HD, bool LSE>
 Config config(int dtype) {
   using S = MmaShape<HD>;
   if (dtype == 1)
-    return {reinterpret_cast<const void*>(flash_attention_kernel_mma<HD>),
+    return {reinterpret_cast<const void*>(flash_attention_kernel_mma<HD, LSE>),
             S::kThreads, S::kRows, S::kSmem};
-  return {reinterpret_cast<const void*>(flash_attention_kernel_fma<HD>),
+  return {reinterpret_cast<const void*>(flash_attention_kernel_fma<HD, LSE>),
           kFmaThreads, kFmaRows, fma_smem_bytes<HD>()};
 }
 
-bool config_of(int dtype, int hd, Config* c) {
+template <int HD>
+Config config(int dtype, bool lse) {
+  return lse ? config<HD, true>(dtype) : config<HD, false>(dtype);
+}
+
+bool config_of(int dtype, int hd, bool lse, Config* c) {
   if (dtype != 0 && dtype != 1) return false;
   switch (hd) {
-    case 16: *c = config<16>(dtype); return true;
-    case 32: *c = config<32>(dtype); return true;
-    case 64: *c = config<64>(dtype); return true;
-    case 80: *c = config<80>(dtype); return true;
-    case 128: *c = config<128>(dtype); return true;
-    case 256: *c = config<256>(dtype); return true;
+    case 16: *c = config<16>(dtype, lse); return true;
+    case 32: *c = config<32>(dtype, lse); return true;
+    case 64: *c = config<64>(dtype, lse); return true;
+    case 80: *c = config<80>(dtype, lse); return true;
+    case 128: *c = config<128>(dtype, lse); return true;
+    case 256: *c = config<256>(dtype, lse); return true;
     default: return false;
   }
 }
@@ -575,28 +597,31 @@ bool config_of(int dtype, int hd, Config* c) {
 // Plain C interface, loaded with ctypes.  q: [B, Sq, H, hd], k, v:
 // [B, Sk, K, hd], o: [B, Sq, H, hd], contiguous device tensors of one dtype
 // (0 = f32: flash_attention_kernel_fma, 1 = bf16:
-// flash_attention_kernel_mma), 16-byte aligned.  `window` is used when
-// use_window is 1.  Launches asynchronously on `stream`; returns
-// cudaGetLastError().
+// flash_attention_kernel_mma), 16-byte aligned; lse: [B, H, Sq] f32, or
+// null for no log-sum-exp.  `window` is used when use_window is 1.
+// Launches asynchronously on `stream`; returns cudaGetLastError().
 
 extern "C" int synergai_flash_attention(const void* q, const void* k,
-                                        const void* v, void* o, int dtype,
+                                        const void* v, void* o, float* lse,
+                                        int dtype,
                                         int B, int Sq, int Sk, int H, int K,
                                         int hd, int causal, int use_window,
                                         int window, float scale,
                                         cudaStream_t stream) {
   Config c;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || K <= 0 || H % K != 0 ||
-      !config_of(dtype, hd, &c))
+      !config_of(dtype, hd, lse != nullptr, &c))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured[2][6] = {};  // > 48 KB of shared memory, once each
+  // > 48 KB of shared memory, once for each kernel
+  static bool configured[2][2][6] = {};
   const int slot = hd == 16 ? 0 : hd == 32 ? 1 : hd == 64 ? 2
                  : hd == 80 ? 3 : hd == 128 ? 4 : 5;
-  if (!configured[dtype][slot]) {
+  bool& done = configured[dtype][lse != nullptr][slot];
+  if (!done) {
     const cudaError_t e = cudaFuncSetAttribute(
         c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured[dtype][slot] = true;
+    done = true;
   }
   const int G = H / K;
   const long long row_tiles =
@@ -607,8 +632,9 @@ extern "C" int synergai_flash_attention(const void* q, const void* k,
                   static_cast<unsigned>(B * K));
   // the bf16 kernel works in the log2 domain: scale * log2(e), rounded once
   float scale_arg = dtype == 1 ? scale * 1.4426950408889634f : scale;
-  void* args[] = {&q, &k, &v, &o, &Sq, &Sk, &H, &K, &causal, &use_window,
-                  &window, &scale_arg};
+  void* args[] = {&q,      &k,          &v,      &o,         &lse,
+                  &Sq,     &Sk,         &H,      &K,         &causal,
+                  &use_window, &window, &scale_arg};
   cudaLaunchKernel(c.fn, grid, c.threads, args, c.smem, stream);
   return static_cast<int>(cudaGetLastError());
 }

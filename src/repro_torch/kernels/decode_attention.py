@@ -12,7 +12,10 @@ in f32.
 CTA of each kv head merging the splits in order) for tensors on the card;
 there is no other path.  ``plan_splits`` sizes the split.
 ``decode_attention.launches`` counts launches.  Unlike the Pallas wrapper it
-takes any cache length, not only multiples of a block.
+takes any cache length, not only multiples of a block.  The kernel has no
+backward: on the card it refuses to run when grad mode is on and an input
+requires grad (``_build.refuse_grad``), rather than return a tensor cut off
+from the graph.
 """
 
 from __future__ import annotations
@@ -105,6 +108,9 @@ def decode_attention(q, k, v, k_valid):
     tickets from a counter buffer kept per device, so calls on one device
     must not run on two streams at once (the port uses one stream)."""
     B, Sq, H, hd, S, K = check_attention_inputs("decode_attention", q, k, v)
+    _build.refuse_grad("decode_attention", "a later training slice (no "
+                       "family's training step runs decode-shaped "
+                       "attention)", q, k, v)
     if Sq != 1:
         raise ValueError(f"decode_attention: {Sq} query tokens, expected 1")
     k_valid = int(k_valid)

@@ -22,7 +22,10 @@ card; there is no other path.  The kernel has two designs: for T below
 32 tokens a CTA, register-blocked (prefill); ``design`` forces one of them.
 ``moe_routing.launches`` counts kernel launches.  Unlike the Pallas wrapper
 it takes any T (T = 0 returns empty outputs with no launch), any D,
-E <= 256 and 1 <= top_k <= E.
+E <= 256 and 1 <= top_k <= E.  The kernel has no backward yet (the MoE/MLA
+training slice: the gates carry the router's gradient): on the card it
+refuses to run when grad mode is on and an input requires grad
+(``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -143,6 +146,9 @@ def moe_routing(x, router_w, top_k, design=None):
     top-k).  ``design`` ("decode" or "prefill") overrides the kernel's
     choice by T; both give the same bits."""
     T, D, E = check_routing_inputs(x, router_w, top_k)
+    _build.refuse_grad("moe_routing", "the MoE/MLA training slice (a router "
+                       "backward: the gates carry the router's gradient)",
+                       x, router_w)
     if design not in DESIGNS:
         raise ValueError(f"moe_routing: design {design!r} is none of "
                          f"{sorted(k for k in DESIGNS if k)}")

@@ -15,7 +15,9 @@ kernel spreads each value column's state over ``LANES`` lanes and each
 (batch, head) over ``column_split`` CTAs.  ``rwkv_scan.launches`` counts
 kernel launches.  Unlike the Pallas wrapper it
 starts from a given state, returns the end state, and takes any S: S = 1 is
-a decode step, S = 0 returns the state with no launch.
+a decode step, S = 0 returns the state with no launch.  The kernel has no
+backward yet (the RWKV training slice): on the card it refuses to run when
+grad mode is on and an input requires grad (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -119,6 +121,8 @@ def rwkv_scan(r, k, v, w, u, state=None, *, state_out=None):
     f32), the end state written to ``state_out`` when it is given;
     ``state_out`` may be ``state`` itself (an update in place)."""
     B, S, H, hd = check_scan_inputs(r, k, v, w, u, state, state_out)
+    _build.refuse_grad("rwkv_scan", "the RWKV training slice (a WKV-scan "
+                       "backward)", r, k, v, w, u, state)
     if r.device.type == "cpu":
         return rwkv_scan_plain(r, k, v, w, u, state, state_out=state_out)
     if r.numel() == 0:       # no step: the state as it is, no launch

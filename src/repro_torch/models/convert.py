@@ -8,6 +8,10 @@ structural (an MoE layer's ``moe`` subtree too, its f32 router staying
 f32, a hymba layer's f32 ``A_log`` too), and an encoder-decoder model's
 ``encoder`` subtree, its ``layers`` stacked over ``n_enc_layers``.  bfloat16
 arrays (numpy's ``ml_dtypes`` type) keep their bits.
+
+``train_state_from_jax(state, cfg, device)`` does the same for a JAX train
+state (``{"params", "opt": {"m", "v", "step"}}``, numpy leaves): the params
+through ``from_jax``, the f32 moments as they are, the int32 step.
 """
 
 from __future__ import annotations
@@ -50,3 +54,21 @@ def from_jax(tree, cfg: ModelConfig, device=None):
         if lead != {n}:
             raise ValueError(f"group of {n} layers has leading dims {lead}")
     return tree_map(lambda a: to_torch(a, device), tree)
+
+
+def train_state_from_jax(state, cfg: ModelConfig, device=None):
+    """The port's train state from the JAX package's (numpy leaves)."""
+    device = resolve_device(device)
+    opt = state["opt"]
+    if set(state) != {"params", "opt"} or set(opt) != {"m", "v", "step"}:
+        raise ValueError(f"not a train state: {sorted(state)}, "
+                         f"{sorted(opt)}")
+    moments = {}
+    for key in ("m", "v"):
+        dtypes = {np.asarray(a).dtype for a in tree_leaves(opt[key])}
+        if dtypes != {np.dtype(np.float32)}:
+            raise ValueError(f"opt.{key} is {dtypes}, not float32")
+        moments[key] = from_jax(opt[key], cfg, device)
+    step = torch.from_numpy(np.array(opt["step"], dtype=np.int32)).to(device)
+    return {"params": from_jax(state["params"], cfg, device),
+            "opt": dict(moments, step=step)}

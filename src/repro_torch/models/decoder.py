@@ -12,17 +12,26 @@ VLM's gated cross-attention layers over a context input), ``"hymba"``
 (attention and a Mamba branch side by side on one norm) and ``"encdec_dec"``
 (self-attention, ungated cross-attention over the encoder's output, MLP).
 ``encoder_stack`` is the encoder-decoder family's bidirectional encoder.
-``mode="train"`` raises ``NotImplementedError`` naming the training slice.
-The JAX stack's ``constrain_seq`` is a no-op off a device mesh and waits for
-the sharding slice.
+
+``mode="train"`` runs every layer with no cache, each under
+``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set, the
+counterpart of the JAX stack's ``jax.checkpoint(..., nothing_saveable)``:
+the backward recomputes a layer's activations from its input.  The dense
+kinds (no MoE, no MLA), ``cross`` and ``encdec_dec`` train; a family with
+another kind, and the VLM, raise ``NotImplementedError`` naming the later
+training slice they wait for (``training_waits_for``).  The JAX stack's
+``constrain_seq`` is a no-op off a device mesh and waits for the sharding
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
@@ -147,6 +156,30 @@ def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
     return layers.init_attn_cache(cfg, batch, buf, dtype, device, lead)
 
 
+# the layer kinds that do not train yet, and the slice each waits for
+_KIND_TRAINING = {"rwkv": layers.RWKV_TRAINING,
+                  "hymba": layers.HYMBA_TRAINING,
+                  "moe": layers.MOE_TRAINING}   # MLA layers are "moe" layers
+
+
+def training_waits_for(cfg: ModelConfig) -> Optional[str]:
+    """The later training slice that ``cfg``'s family waits for, or None
+    where the port trains it (dense, encoder-decoder)."""
+    if cfg.family == "vlm":
+        return layers.VLM_TRAINING
+    return next((_KIND_TRAINING[g.spec.kind] for g in build_layout(cfg)
+                 if g.spec.kind in _KIND_TRAINING), None)
+
+
+def refuse_training(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the slice ``cfg``'s family
+    waits for, if it does not train yet."""
+    waits_for = training_waits_for(cfg)
+    if waits_for is not None:
+        raise NotImplementedError(f"training {cfg.name} waits for "
+                                  f"{waits_for}")
+
+
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
                    pos, ctx=None, absorb_mla=False):
     if spec.kind == "rwkv":
@@ -224,17 +257,33 @@ def init_decoder_cache(cfg: ModelConfig, batch, buf_len, ctx_len=0,
             for g in build_layout(cfg)]
 
 
+def _train_layer(p, cfg, spec, ctx, x):
+    return _layer_forward(p, cfg, spec, x, mode="train", cache=None,
+                          pos=None, ctx=ctx)[0]
+
+
 def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
                   ctx=None, absorb_mla=False):
     """Run all layer groups.  x: [B, S, D] -> ([B, S, D], new_caches).
 
-    Prefill produces each group's cache stacked over its layers (a cross
-    layer's from ``ctx``); decode writes into ``caches`` in place and
-    returns them (a cross layer reads its cache, and ``ctx`` is None)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: training waits for the training slice")
+    Train runs each layer with no cache (under ``checkpoint`` with
+    ``cfg.remat``) and returns None for each group's cache.  Prefill
+    produces each group's cache stacked over its layers (a cross layer's
+    from ``ctx``); decode writes into ``caches`` in place and returns them
+    (a cross layer reads its cache, and ``ctx`` is None)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     groups = build_layout(cfg)
+    if mode == "train":
+        refuse_training(cfg)
+        for g, gparams in zip(groups, params["groups"]):
+            for i in range(g.n):
+                layer = partial(_train_layer, tree_map(lambda t: t[i],
+                                                       gparams),
+                                cfg, g.spec, ctx)
+                x = (checkpoint(layer, x, use_reentrant=False) if cfg.remat
+                     else layer(x))
+        return x, [None] * len(groups)
     caches = caches if caches is not None else [None] * len(groups)
     new_caches = []
     for g, gparams, gcache in zip(groups, params["groups"], caches):
@@ -263,26 +312,34 @@ def init_encoder(generator, cfg: ModelConfig, device=None):
                                       device=device)}
 
 
-def encoder_stack(params, cfg: ModelConfig, x):
+def _encoder_layer(lp, cfg, cos, sin, x):
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    attn = lp["attn"]
+    xin = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q = apply_rope(layers._project(xin, attn["wq"]), cos, sin)
+    k = apply_rope(layers._project(xin, attn["wk"]), cos, sin)
+    v = layers._project(xin, attn["wv"])
+    out = common.attention(cfg, q, k, v, causal=False)
+    x = x + out.reshape(B, S, H * hd) @ attn["wo"].reshape(H * hd, D)
+    return x + common.mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                          cfg.act)
+
+
+def encoder_stack(params, cfg: ModelConfig, x, *, remat=False):
     """Bidirectional encoder over stubbed frame embeddings [B, S, D].
 
     ``attn_sublayer`` is causal, so a non-causal variant is inlined here,
     as in the JAX encoder; its attention is prefill-shaped (Sq == Sk), so
-    ``common.attention`` sends it to the flash kernel, non-causal."""
-    B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    cos, sin = rope_freqs_cached(cfg, torch.arange(S, device=x.device))
+    ``common.attention`` sends it to the flash kernel, non-causal.
+    ``remat``: each layer under ``checkpoint`` (training)."""
+    cos, sin = rope_freqs_cached(cfg, torch.arange(x.shape[1],
+                                                   device=x.device))
     for i in range(cfg.encdec.n_enc_layers):
-        lp = tree_map(lambda t: t[i], params["layers"])
-        attn = lp["attn"]
-        xin = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q = apply_rope(layers._project(xin, attn["wq"]), cos, sin)
-        k = apply_rope(layers._project(xin, attn["wk"]), cos, sin)
-        v = layers._project(xin, attn["wv"])
-        out = common.attention(cfg, q, k, v, causal=False)
-        x = x + out.reshape(B, S, H * hd) @ attn["wo"].reshape(H * hd, D)
-        x = x + common.mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                           cfg.act)
+        layer = partial(_encoder_layer,
+                        tree_map(lambda t: t[i], params["layers"]), cfg, cos,
+                        sin)
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

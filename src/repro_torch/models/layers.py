@@ -21,7 +21,12 @@ with its conv and state cache.
     init_mamba(generator, cfg, dtype) -> params (``A_log`` f32)
     mamba_branch(params, cfg, x, *, mode, cache) -> (y, {"conv", "ssm"})
 
-``mode``: "prefill" | "decode" ("train" waits for the training slice);
+``mode``: "train" | "prefill" | "decode".  "train" runs the full sequence
+with no cache, as prefill does, and returns None for the cache: the GQA and
+cross-attention sublayers train (the flash kernel has a backward); MLA, the
+RWKV mixes and the Mamba branch raise ``NotImplementedError`` naming the
+later training slice each waits for (``RWKV_TRAINING``, ``MOE_TRAINING``,
+``HYMBA_TRAINING``);
 ``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), the cross cache
 {"ck", "cv"} [B, S_ctx, K, hd], the MLA latent cache {"ckv" [B, buf, R],
 "krope" [B, buf, rope]}, or the RWKV cache {"state" [B, H, hd, hd] f32,
@@ -63,6 +68,25 @@ from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.models import common
 from repro_torch.models.common import (apply_rope, attention, dense_init,
                                        head_rms_norm, rms_norm, rope_freqs)
+
+
+# the later training slices the layers that do not train yet wait for
+RWKV_TRAINING = ("the RWKV training slice (a WKV-scan backward and "
+                 "chunked_time_scan)")
+MOE_TRAINING = ("the MoE/MLA training slice (a router backward: the gates "
+                "carry the router's gradient)")
+HYMBA_TRAINING = ("the hymba training slice (the Mamba recurrence under "
+                  "chunked_time_scan)")
+VLM_TRAINING = ("the VLM training slice (a depth cut or sharding: 9.8 B "
+                "parameters' train state does not fit one card)")
+
+
+def refuse_train(mode, what, waits_for):
+    """Raise ``NotImplementedError`` naming ``waits_for`` if ``mode`` is
+    "train"."""
+    if mode == "train":
+        raise NotImplementedError(f"mode 'train' on {what}: waits for "
+                                  f"{waits_for}")
 
 
 def _cache_write(buf, update, idx):
@@ -123,9 +147,11 @@ def attn_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos, window):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         out = attention(cfg, q, k, v, causal=True, window=window)
-        if window is not None:
+        if mode == "train":
+            new_cache = None
+        elif window is not None:
             # ring buffer holding the last `window` tokens
             new_cache = {"k": k[:, -window:], "v": v[:, -window:]}
         else:
@@ -142,8 +168,7 @@ def attn_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos, window):
         out = attention(cfg, q, ck, cv, causal=False, window=None,
                         k_valid=k_valid)
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: training waits for the training slice")
+        raise ValueError(f"mode {mode!r}")
     H, hd = cfg.n_heads, cfg.head_dim
     y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
     return y, new_cache
@@ -165,15 +190,15 @@ def init_cross_attention(generator, cfg: ModelConfig, dtype, gated: bool,
 
 def cross_sublayer(p, cfg: ModelConfig, x, *, mode, cache, ctx):
     """Cross-attention: queries from x, keys and values from ``ctx``.
-    Prefill computes them from ``ctx`` and returns them as the cache;
-    decode reads them from the cache (``ctx`` is static across steps)."""
+    Prefill computes them from ``ctx`` and returns them as the cache (train
+    computes them too and returns None); decode reads them from the cache
+    (``ctx`` is static across steps)."""
     B, S, D = x.shape
     q = _project(x, p["wq"])
     if cfg.qk_norm:
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: training waits for the training slice")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     if mode == "decode" and cache is not None:
         ck, cv = cache["ck"], cache["cv"]
         new_cache = cache
@@ -182,7 +207,7 @@ def cross_sublayer(p, cfg: ModelConfig, x, *, mode, cache, ctx):
         cv = _project(ctx, p["wv"])
         if cfg.qk_norm:
             ck = head_rms_norm(ck, p["k_norm"], cfg.norm_eps)
-        new_cache = {"ck": ck, "cv": cv}
+        new_cache = {"ck": ck, "cv": cv} if mode != "train" else None
     out = attention(cfg, q, ck, cv, causal=False, window=None)
     H, hd = cfg.n_heads, cfg.head_dim
     return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D), new_cache
@@ -240,6 +265,7 @@ def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
     k of R + rope dims, v of R).  As in the JAX layer, the scores are then
     divided by sqrt(R + rope), q's width there, not sqrt(nope + rope): the
     two modes are not the same function."""
+    refuse_train(mode, "MLA", MOE_TRAINING)
     m = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
@@ -274,8 +300,7 @@ def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
         new_cache = {"ckv": ckv, "krope": k_rope}
         k_valid, causal = None, True
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: training waits for the training slice")
+        raise ValueError(f"mode {mode!r}")
 
     if absorb and mode == "decode":
         # fold wk_b into q: q_lat [B, 1, H, R]; attend in the latent space
@@ -449,6 +474,7 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, *, mode, cache):
     from zeros in prefill and from the cache's state in decode, where the
     kernel writes the end state back into the cache (and this function the
     token shift)."""
+    refuse_train(mode, "the RWKV time mix", RWKV_TRAINING)
     tm = p["tm"]
     B, S, D = x.shape
     hd = cfg.ssm.rwkv_head_dim
@@ -485,6 +511,7 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, *, mode, cache):
 def rwkv_channel_mix(p, cfg: ModelConfig, x, *, mode, cache):
     """RWKV6 channel-mix.  ``cache``: the [B, D] token shift (decode), which
     is written in place; returns (y, the new shift)."""
+    refuse_train(mode, "the RWKV channel mix", RWKV_TRAINING)
     cm = p["cm"]
     dx = _token_shift(x, cache) - x
     xk = x + dx * cm["mu_k"]
@@ -566,6 +593,7 @@ def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
     convolved x become f32 for the scan and the skip term; y returns to the
     model's dtype before the gate.  Decode writes the conv history and the
     state into ``cache`` in place."""
+    refuse_train(mode, "the Mamba branch", HYMBA_TRAINING)
     s = cfg.ssm
     B, S, D = x.shape
     di = s.d_inner_mult * D
@@ -585,8 +613,7 @@ def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
         for i in range(1, s.d_conv):
             conv_out = conv_out + hist[:, i:i + S] * p["conv_w"][i]
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: training waits for the training slice")
+        raise ValueError(f"mode {mode!r}")
     xc = F.silu(conv_out)
 
     proj = xc @ p["x_proj"]

@@ -6,6 +6,7 @@ functions take and return nested dicts of tensors with the JAX package's
 keys and per-group stacking:
 
     init_params(generator)               -> params on the model's device
+    train_loss(params, batch)            -> scalar f32 loss
     prefill(params, batch)               -> (last_logits [B,V], caches)
     decode(params, caches, batch)        -> (logits [B,V], caches)
     init_cache(batch, buf_len, ctx_len)  -> zeroed caches
@@ -28,7 +29,12 @@ None).
 
 The model runs on the card unless ``device="cpu"`` is asked for.  Every
 family of the registry runs (dense, MoE with MLA too, RWKV, hybrid hymba,
-VLM, encoder-decoder); ``train_loss`` waits for the training slice.
+VLM, encoder-decoder).  ``train_loss`` (a batch of ``tokens`` and
+``labels`` [B, S], an encoder-decoder's with ``audio_embeds``) is the JAX
+package's: the decoder stack in train mode, then ``chunked_ce_loss``.  The
+dense and encoder-decoder families train; the others raise
+``NotImplementedError`` naming the training slice they wait for
+(``decoder.training_waits_for``).
 """
 
 from __future__ import annotations
@@ -37,11 +43,51 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.models import common, decoder
+
+
+def cross_entropy(logits, labels):
+    """logits: [B, S, V] (any float dtype), labels: [B, S] integers."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+CE_CHUNK = 512  # sequence tokens per loss chunk
+
+
+def chunked_ce_loss(params, cfg, x, labels):
+    """Cross-entropy without materializing the full [B, S, V] logits.
+
+    The unembed and logsumexp run per sequence chunk of ``CE_CHUNK`` tokens
+    (when S is a larger multiple of it), each under ``checkpoint``, so the
+    backward recomputes a chunk's logits and the peak logits buffer is
+    S / CE_CHUNK times smaller, as the JAX package's remat of its scan
+    body."""
+    B, S, D = x.shape
+    n = S // CE_CHUNK if (S % CE_CHUNK == 0 and S > CE_CHUNK) else 1
+    if n == 1:
+        return cross_entropy(common.unembed(params["embed"], cfg, x), labels)
+    c = S // n
+
+    def chunk(xi, yi):
+        logits = common.unembed(params["embed"], cfg, xi).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yi[..., None].long())[..., 0]
+        return (lse - gold).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        total = total + checkpoint(chunk, x[:, i * c:(i + 1) * c],
+                                   labels[:, i * c:(i + 1) * c],
+                                   use_reentrant=False)
+    return total / (B * S)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +112,11 @@ def _build_decoder_model(cfg: ModelConfig, device: torch.device) -> Model:
         return decoder.init_decoder(generator, cfg, device)
 
     def train_loss(params, batch):
-        raise NotImplementedError("train_loss waits for the training slice")
+        decoder.refuse_training(cfg)
+        x = common.embed(params["embed"], cfg, batch["tokens"])
+        x, _ = decoder.decoder_stack(params, cfg, x, mode="train",
+                                     ctx=_ctx_of(cfg, batch))
+        return chunked_ce_loss(params, cfg, x, batch["labels"])
 
     def prefill(params, batch, absorb_mla=False):
         x = common.embed(params["embed"], cfg, batch["tokens"])
@@ -105,7 +155,11 @@ def _build_encdec_model(cfg: ModelConfig, device: torch.device) -> Model:
         return params
 
     def train_loss(params, batch):
-        raise NotImplementedError("train_loss waits for the training slice")
+        enc = decoder.encoder_stack(params["encoder"], cfg,
+                                    batch["audio_embeds"], remat=cfg.remat)
+        x = common.embed(params["embed"], cfg, batch["tokens"])
+        x, _ = decoder.decoder_stack(params, cfg, x, mode="train", ctx=enc)
+        return chunked_ce_loss(params, cfg, x, batch["labels"])
 
     def prefill(params, batch):
         enc = decoder.encoder_stack(params["encoder"], cfg,

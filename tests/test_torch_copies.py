@@ -1,11 +1,12 @@
 """The port's copies of the host layer are copies.
 
-Every module under ``src/repro_torch/{core,configs}`` that has a counterpart
-of the same name under ``src/repro/`` is the counterpart with its imports
-rewritten: drop its first line (``# Port of repro/<dir>/<name>.py: ...``),
-rename ``repro_torch`` to ``repro``, and the two files are equal.  The
-modules the port writes itself, and the lines where a copy must differ, are
-listed below with their reasons; the tests check that each list is exact."""
+Every module under ``src/repro_torch/{core,configs,training}`` that has a
+counterpart of the same name under ``src/repro/`` is the counterpart with
+its imports rewritten: drop its first line (``# Port of
+repro/<dir>/<name>.py: ...``), rename ``repro_torch`` to ``repro``, and the
+two files are equal.  The modules the port writes itself, and the lines
+where a copy must differ, are listed below with their reasons; the tests
+check that each list is exact."""
 
 import re
 from pathlib import Path
@@ -15,7 +16,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
-DIRS = ("core", "configs")
+DIRS = ("core", "configs", "training")
 
 # the port's own modules: no counterpart, or one it does not copy
 OWN = {
@@ -26,6 +27,16 @@ OWN = {
                            "its tick runs the port's kernels",
     "core/scoring.py": "the score_fn backends on the port's kernels; the "
                        "reference's counterpart is core/pallas_scoring.py",
+    "training/__init__.py": "the reference's training is a namespace "
+                            "package",
+    "training/optimizer.py": "the counterpart imports JAX; the port's AdamW "
+                             "is the same f32 expressions on tensors, "
+                             "updated in place slice by slice",
+    "training/train_step.py": "the counterpart imports JAX; the port takes "
+                              "torch.autograd.grad over the param leaves",
+    "training/checkpoint.py": "the counterpart imports JAX; the port "
+                              "flattens tensors with the same key strings "
+                              "and writes bfloat16 as numpy's |V2",
 }
 # (copy's line, counterpart's line) of every line where a copy differs
 EXCEPTIONS = {

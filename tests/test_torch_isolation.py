@@ -17,7 +17,7 @@ import torch
 from repro_torch import _device
 from repro_torch._device import resolve_device
 from repro_torch.core.scoring import make_torch_score_fn
-from repro_torch.launch import schedule
+from repro_torch.launch import schedule, train
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
@@ -89,6 +89,35 @@ def test_subprocess_serving_loads_no_jax_and_no_reference(arch):
     assert proc.stdout.splitlines()[-1] == "ISOLATED"
 
 
+@pytest.mark.parametrize("arch", ["qwen3-4b", "seamless-m4t-medium"])
+def test_subprocess_training_loads_no_jax_and_no_reference(arch, tmp_path):
+    """The training slice (the launcher, ``training/``, the flash gradient,
+    a checkpoint written and resumed) runs with nothing of JAX or the JAX
+    package loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch.train import main\n"
+        "from repro_torch.models.convert import train_state_from_jax\n"
+        f"argv = ['--arch', '{arch}', '--device', 'cpu', '--batch', '2', "
+        f"'--seq', '8', '--ckpt-dir', r'{tmp_path}', '--ckpt-every', '2']\n"
+        "first = main(argv + ['--steps', '2'])\n"
+        "again = main(argv + ['--steps', '3'])\n"
+        "assert again['start'] == 2 and len(again['losses']) == 1, again\n"
+        "want = {'repro_torch.training.' + m for m in ('data', 'optimizer', "
+        "'train_step', 'checkpoint')}\n"
+        "assert want <= set(sys.modules), sorted(want - set(sys.modules))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ISOLATED"
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -103,6 +132,8 @@ def test_without_cuda_the_default_device_raises(monkeypatch):
             make_torch_score_fn(v2=v2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         schedule.main(["--jobs", "5"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-4b", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

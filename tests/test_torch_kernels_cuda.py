@@ -507,3 +507,132 @@ def test_moe_model_on_the_card_matches_the_cpu(no_tf32):
     want = InferenceEngine(cpu, params, max_len=60).generate(
         {"tokens": toks}, 6)
     assert torch.equal(out.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward: its kernels sum in another order than the plain
+# formula, so dq, dk, dv are held within chip_smoke.BWD_REL of each tensor's
+# max |plain|; it uses no atomics, so two calls are bit-identical
+
+
+BWD_CASES = [
+    (2, 128, 128, 4, 4, 16, True, None), (2, 200, 200, 8, 2, 32, True, None),
+    (1, 333, 333, 4, 1, 64, True, 100), (2, 257, 257, 8, 2, 80, True, 64),
+    (1, 190, 190, 8, 1, 256, True, None), (1, 70, 70, 4, 2, 64, False, None),
+    (2, 150, 150, 25, 5, 64, True, None), (1, 97, 97, 25, 5, 128, True, 40),
+    (2, 100, 100, 10, 5, 80, False, 24), (1, 1, 1, 4, 2, 128, True, None),
+    (1, 100, 37, 8, 2, 128, True, None), (1, 37, 100, 8, 2, 128, True, None),
+    (1, 64, 200, 8, 2, 16, False, 50), (1, 300, 300, 32, 8, 128, True, None)]
+
+
+def _bwd_inputs(B, Sq, Sk, H, K, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype).cuda()
+            for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                      (B, Sq, H, hd))]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain_version(no_tf32, B, Sq, Sk, H,
+                                                     K, hd, causal, window,
+                                                     dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout = _bwd_inputs(B, Sq, Sk, H, K, hd, dtype, Sq * 31 + hd)
+    out, lse = fa._launch_forward(q, k, v, causal, window, True)
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+    torch.testing.assert_close(lse, lse_p, rtol=2e-5, atol=2e-5)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                        causal=causal, window=window)
+    bound = chip_smoke.BWD_REL[str(dtype).split(".")[-1]]
+    # with one key P = 1, so dq and dk are 0 up to the rounding of dP - D,
+    # two f32 sums of hd products |dout| |v|: held to that, not to max |c|
+    cancel = (torch.finfo(torch.float32).eps * hd
+              * float(dout.float().abs().max() * v.float().abs().max()))
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        tol = (cancel if Sk == 1 and name != "dv"
+               else bound * float(c.float().abs().max()))
+        assert float((a.float() - c.float()).abs().max()) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_on_the_card_runs_the_backward_kernel(no_tf32, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout = _bwd_inputs(2, 96, 96, 8, 2, 64, dtype, 5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    out = fa.flash_attention(*leaves, causal=True, window=40)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    with chip_smoke.patched(chip_smoke.attention_plain_grad()):
+        want = torch.autograd.grad(
+            fa.flash_attention(*plain, causal=True, window=40), plain, dout)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    bound = chip_smoke.BWD_REL[str(dtype).split(".")[-1]]
+    for a, c in zip(got, want):
+        assert float((a.float() - c.float()).abs().max()) <= 2 * bound * (
+            float(c.float().abs().max()))
+
+
+def test_kernels_without_a_backward_refuse_gradients(card):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import rwkv_scan as rs
+    q, k, v = _attn_inputs((1, 1, 4, 64), (1, 8, 2, 64), torch.float32, 1)
+    r, kk, vv, w = (torch.rand((1, 4, 2, 16), device="cuda")
+                    for _ in range(4))
+    u = torch.zeros((2, 16), device="cuda")
+    x = torch.randn((4, 64), device="cuda")
+    router = torch.randn((64, 16), device="cuda")
+    calls = {"decode_attention": lambda t: da.decode_attention(t, k, v, 8),
+             "rwkv_scan": lambda t: rs.rwkv_scan(t, kk, vv, w, u),
+             "moe_routing": lambda t: mr.moe_routing(x, t, 2)}
+    firsts = {"decode_attention": q, "rwkv_scan": r, "moe_routing": router}
+    for name, call in calls.items():
+        leaf = firsts[name].clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="training slice"):
+            call(leaf)
+        with torch.no_grad():
+            call(leaf)             # no gradient asked for: the kernel runs
+        call(firsts[name])         # no input requires grad
+
+
+def test_dense_model_trains_on_the_card_like_the_cpu(no_tf32):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = reduced(get_config("qwen3-4b"), remat=True)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    loss, grads = loss_and_grads(gpu, _to(params, gpu.device),
+                                 _to(batch, gpu.device))
+    L = cfg.n_layers
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (before[0] + 2 * L, before[1] + L)
+    want_loss, want = loss_and_grads(cpu, params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    from repro_torch._tree import tree_leaves
+    for a, c in zip(tree_leaves(grads), tree_leaves(want)):
+        assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(
+            c.abs().max())

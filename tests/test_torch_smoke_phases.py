@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s MLA, VLM, hybrid and encoder-decoder serving phases
-(4d-4g) rehearsed on the CPU at the reduced configs' size.
+(4d-4g) and its training phases (5a-5b) rehearsed on the CPU at the reduced
+configs' size.
 
 The phases are the functions the card run calls (``serve_mla``,
 ``serve_vlm``, ``serve_hymba``, ``serve_encdec``), with the serving sizes
@@ -11,7 +12,10 @@ flash in prefill and decode attention in decode on the VLM's self layers,
 none on its cross layers; both on every hymba layer; on seamless-m4t, flash
 on the encoder, cross and self layers, non-causal and causal counted apart,
 and decode attention on the self layers) and their parity holds then run as
-on the card."""
+on the card.  The training phases (``train_cell``) run three steps with
+remat on, so each step launches flash twice a layer (the forward and its
+recomputation) and its backward once, counted by mask on seamless-m4t; their
+holds (i)-(iii) run as on the card."""
 
 import dataclasses
 import importlib.util
@@ -35,9 +39,11 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 
-def counting(fn):
+def counting(fn, launches=lambda: True):
+    """``fn`` counting its calls as the card's wrapper counts launches:
+    each call where ``launches()`` says a kernel would launch."""
     def counted(*args, **kw):
-        counted.launches += 1
+        counted.launches += int(launches())
         return fn(*args, **kw)
     counted.launches = 0
     return counted
@@ -54,12 +60,19 @@ def rehearsal(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     counted = {}
+    # the forward launches nothing where chip_smoke's plain reference has
+    # patched the plain version in over its launch (``_launch_forward``)
+    launch_forward = fa._launch_forward
+    forward_launches = {"flash_attention":
+                        lambda: fa._launch_forward is launch_forward}
     for module, name, homes in (
             (fa, "flash_attention", [common]),
+            (fa, "flash_attention_bwd", []),
             (da, "decode_attention", [common]),
             (mr, "moe_routing", [layers]),
             (rs, "rwkv_scan", [layers])):
-        fn = counting(getattr(module, name))
+        fn = counting(getattr(module, name),
+                      forward_launches.get(name, lambda: True))
         for home in [module] + homes:
             monkeypatch.setattr(home, name, fn)
         counted[name] = fn
@@ -139,3 +152,46 @@ def test_encdec_phase_runs_on_the_cpu(rehearsal, capsys):
     assert "2 encoder + 2 decoder layers" in out
     assert out.count("parity ") == 2 and "decode_profile " in out
     assert profile["arch"] == cfg.name
+
+
+def train_configs(arch, f32_layers=None):
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16",
+                              remat=True)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    if f32_layers:
+        f32 = dataclasses.replace(f32, n_layers=f32_layers)
+    return cfg, f32
+
+
+def test_train_dense_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5a on the reduced qwen3-4b in bf16 with remat (2 layers; the
+    f32 step on its first layer): each of 3 steps launches flash 2 x 2
+    times and its backward 2 times, nothing else; holds (i)-(iii) pass."""
+    cfg, f32 = train_configs("qwen3-4b", f32_layers=1)
+    totals, profile, peak = chip_smoke.train_cell(cfg, 2, 64, f32,
+                                                  resume=True, device="cpu")
+    assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
+                      "decode_attention": 0, "moe_routing": 0,
+                      "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert out.count("train_step ") == 3
+    for tag in ("train_loss_hold ", "train_profile ", "training ",
+                "train_f32_step ", '"bit_equal": true'):
+        assert tag in out, tag
+    assert profile["arch"] == cfg.name and peak == 0
+
+
+def test_train_encdec_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5b on the reduced seamless-m4t in bf16 with remat (2 encoder,
+    2 decoder layers): each step launches flash (2 + 2 x 2) x 2 times, 8 of
+    them non-causal (encoder and cross layers), and its backward 6 times, 4
+    non-causal; the f32 step at full (reduced) depth."""
+    cfg, f32 = train_configs("seamless-m4t-medium")
+    totals, _, _ = chip_smoke.train_cell(cfg, 2, 32, f32, device="cpu")
+    assert totals == {"flash_attention": 36, "flash_attention_bwd": 18,
+                      "decode_attention": 0, "moe_routing": 0,
+                      "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert out.count('"forward": {"causal": 4, "non_causal": 8}, '
+                     '"backward": {"causal": 2, "non_causal": 4}') == 3
+    assert "train_f32_step " in out and "train_resume " not in out

@@ -20,7 +20,11 @@ profiler's device ms of one call, averaged over 25.
   hd-80 buffer, hd-256 MQA, G = 5 and k_valid 1024;
 - ``rwkv_scan`` (bit for bit, f32 and bf16) at [B, S, H, hd] =
   [4, 1024, 32, 64] from zeros, [4, 1, 32, 64], [2, 1000, 8, 64],
-  [2, 333, 8, 16] and [1, 515, 2, 64] from a random state.
+  [2, 333, 8, 16] and [1, 515, 2, 64] from a random state;
+- ``flash_attention`` (within ``chip_smoke.ATTN_TOL``, bf16 and f32) at
+  the checkout's ``chip_smoke.FLASH_HOLDS``, as serving calls it (no
+  log-sum-exp), and, where the checkout's forward can write one, with its
+  log-sum-exp as a training step calls it (``lse`` keys).
 
 One JSON line per checkout, with the card's name and power limit.  To
 compare two commits, unpack the parent into a directory that .gitignore
@@ -50,6 +54,7 @@ def time_checkout(root):
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_routing as mr
     from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.kernels import scheduler_score as ss
@@ -106,6 +111,29 @@ def time_checkout(root):
                                  "not bit-equal")
             out[f"wkv {B},{S},{H},{hd} {dtype}"] = cs.device_ms(
                 lambda: rs.rwkv_scan(*ins, state), "rwkv_scan_kernel")
+    for B, S, H, K, hd, window, causal in cs.FLASH_HOLDS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = cs.attn_inputs((B, S, H, hd), (B, S, K, hd), dtype,
+                                     S + hd)
+
+            def flash():
+                return fa.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+
+            got = flash().float()
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window).float()
+            rtol, atol = cs.ATTN_TOL[str(dtype).split(".")[1]]
+            if not bool(((got - want).abs() <= atol + rtol * want.abs())
+                        .all()):
+                raise SystemExit(f"{root}: flash {(B, S, H, K, hd)} {dtype}"
+                                 " outside ATTN_TOL")
+            key = f"flash {B},{S},{H},{K},{hd},{window},{int(causal)} {dtype}"
+            out[key] = cs.device_ms(flash, "flash_attention_kernel")
+            if hasattr(fa, "_launch_forward"):
+                out[key + " lse"] = cs.device_ms(
+                    lambda: fa._launch_forward(q, k, v, causal, window, True),
+                    "flash_attention_kernel")
     print(json.dumps(out), flush=True)
 
 
