@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit, the PyTorch version; build every CUDA
    source in ``src/repro_torch/kernels/csrc`` in parallel (one ``nvcc``
    each), time the build and print ``ptxas``'s register and spill lines
-   (every flash instantiation's among them) and each flash kernel's
-   tensor-core (``HMMA``) instructions from ``cuobjdump``'s SASS (the bf16
-   kernels must have them, the f32 ones none);
+   (every flash instantiation's among them, forward and backward) and each
+   flash kernel's tensor-core (``HMMA``) instructions from ``cuobjdump``'s
+   SASS (the bf16 kernels, ``_mma``, must have them, the f32 ones none);
 2. each kernel against its plain PyTorch version on the card, with the
    kernel's, the plain version's and the bound's milliseconds:
    (a) the v1 and v2 scoring kernels at (J, W) = (2048, 256), (2043, 256),
@@ -66,7 +66,9 @@ Phases, in order; any failure exits non-zero:
        256, gemma-like MQA at hd 256 and hymba's G = 5 windowed at 1,024,
        in f32 (TF32 off) and bf16: dq, dk and dv within ``BWD_REL`` of
        each one's max |plain|, two calls bit-identical, the profiler's
-       kernels of a call exactly its three, the forward's ``lse`` against
+       kernels of a call exactly its three (in bf16 the D pre-pass and the
+       tensor-core ``_mma`` dK/dV and dQ kernels, in f32 the FMA ones, by
+       their names), the forward's ``lse`` against
        ``torch.logsumexp`` of the masked scores (``LSE_TOL``); the kernel's,
        the plain version's and the backward of SDPA (``enable_gqa``, timed
        alone) milliseconds, the bound by operations (10 hd flops a visible
@@ -276,6 +278,10 @@ LSE_TOL = (2e-5, 2e-5)
 BWD_KERNELS = ("flash_attention_bwd_dot_kernel",
                "flash_attention_bwd_dkdv_kernel",
                "flash_attention_bwd_dq_kernel")
+# the backward's tensor-core kernels, which bf16 launches (f32: the FMA
+# kernels of the same names without the suffix)
+BWD_MMA = ("flash_attention_bwd_dkdv_kernel_mma",
+           "flash_attention_bwd_dq_kernel_mma")
 # (rtol, atol) of a kernel against its plain version: the same f32 math
 # summed in another order; in bf16 both round their f32 result once
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0 ** -7, 1e-5)}
@@ -615,11 +621,13 @@ def time_ms(fn, reps=REPS, batch=BATCH) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, kernel_name, reps=REPS, tries=3, names=None):
+def device_ms(fn, kernel_name, reps=REPS, tries=3, names=None,
+              by_name=None):
     """Device time of one call of ``fn`` in the CUDA kernels whose names
     contain ``kernel_name`` (each kernel's mean over ``reps`` calls, summed
     over the kernels), from the profiler's trace; their full names are
-    appended to ``names`` if it is a list.  A trace now and then holds no
+    appended to ``names`` if it is a list, and each one's time is set in
+    ``by_name`` if it is a dict.  A trace now and then holds no
     device time for them; it is taken again, up to ``tries`` times, and
     None is returned if none does."""
     import torch
@@ -635,10 +643,13 @@ def device_ms(fn, kernel_name, reps=REPS, tries=3, names=None):
                  if kernel_name in evt.key and evt.count
                  and getattr(evt, "device_time_total", 0)]
         if found:
+            ms = {evt.key: evt.device_time_total / evt.count / 1e3
+                  for evt in found}
             if names is not None:
-                names.extend(sorted(evt.key for evt in found))
-            return sum(evt.device_time_total / evt.count / 1e3
-                       for evt in found)
+                names.extend(sorted(ms))
+            if by_name is not None:
+                by_name.update(ms)
+            return sum(ms.values())
     return None
 
 
@@ -694,25 +705,45 @@ def sass_counts(lib, opcode):
 
 def flash_hmma_report():
     """Print each flash kernel's tensor-core instructions (``HMMA`` in the
-    SASS); fail if a bf16 kernel has none or an f32 kernel has any.  Their
+    SASS), forward and backward; fail if a bf16 kernel (``_mma``) has none
+    or an f32 kernel (or the backward's D pre-pass) has any.  Their
     registers and spills are ``ptxas``'s lines above."""
     from repro_torch.kernels import _build
-    sass = sass_counts(_build.library_path("flash_attention"), "HMMA")
-    if sass is None:
-        print("  flash: no cuobjdump, tensor-core instructions not counted")
-        return
-    kinds = set()
-    for name, hmma in sorted(sass.items()):
-        if "flash_attention_kernel" not in name:
+    for source, prefix in (("flash_attention", "flash_attention_kernel"),
+                           ("flash_attention_bwd", "flash_attention_bwd_")):
+        sass = sass_counts(_build.library_path(source), "HMMA")
+        if sass is None:
+            print(f"  {source}: no cuobjdump, tensor-core instructions not "
+                  "counted")
             continue
-        mma = "flash_attention_kernel_mma" in name
-        if (hmma > 0) != mma:
-            raise SystemExit(f"FAIL {name}: {hmma} HMMA instructions")
-        kinds.add(mma)
-        print(f"  cuobjdump {name}: {hmma} HMMA", flush=True)
-    if kinds != {True, False}:
-        raise SystemExit("FAIL flash: the SASS lacks the mma or the fma "
-                         "kernels")
+        kinds = set()
+        for name, hmma in sorted(sass.items()):
+            if prefix not in name:
+                continue
+            mma = "_kernel_mma" in name
+            if (hmma > 0) != mma:
+                raise SystemExit(f"FAIL {name}: {hmma} HMMA instructions")
+            kinds.add(mma)
+            print(f"  cuobjdump {name}: {hmma} HMMA", flush=True)
+        if kinds != {True, False}:
+            raise SystemExit(f"FAIL {source}: the SASS lacks the mma or "
+                             "the fma kernels")
+
+
+def bwd_kernels_fault(device, dtype_name):
+    """What is wrong with the kernels one ``flash_attention_bwd`` call ran
+    ({profiler name: launches}, from ``kernels_per_call``), or None: the
+    three of ``BWD_KERNELS``, the dK/dV and dQ kernels those of
+    ``BWD_MMA`` in bf16 and none of them in f32."""
+    names = list(device)
+    if len(names) != len(BWD_KERNELS) or any(
+            not any(k in n for n in names) for k in BWD_KERNELS):
+        return f"kernels {device}"
+    mma = sorted(k for k in BWD_MMA if any(k in n for n in names))
+    want = sorted(BWD_MMA) if dtype_name == "bfloat16" else []
+    if mma != want:
+        return f"{dtype_name} ran {names}, tensor-core kernels {mma}"
+    return None
 
 
 def to_card(arrays):
@@ -1596,7 +1627,8 @@ def hold_flash_bwd(B, S, H, K, hd, window, causal, dtype_name, rate):
     against ``flash_attention_bwd_plain`` on the same (q, k, v, out, lse,
     dout), dq, dk and dv each within ``BWD_REL`` of its max |plain|; two
     calls bit-identical; the profiler's kernels of one call exactly the
-    three of ``BWD_KERNELS``, once each.  Times: the kernel (device and per
+    three of ``BWD_KERNELS``, once each, in bf16 the tensor-core ones of
+    ``BWD_MMA`` and in f32 the FMA ones.  Times: the kernel (device and per
     call), the plain version and the library yardstick, the backward of
     ``scaled_dot_product_attention`` with ``enable_gqa`` timed alone (its
     forward done once, ``retain_graph``)."""
@@ -1651,19 +1683,17 @@ def hold_flash_bwd(B, S, H, K, hd, window, causal, dtype_name, rate):
     # the runtime side sees every launch; the device side names them (it
     # may miss one near a trace's start, so its counts are not held)
     device, api = kernels_per_call(kernel, reps=3)
-    if (api != len(BWD_KERNELS) or len(device) != len(BWD_KERNELS)
-            or any(not any(k in name for name in device)
-                   for k in BWD_KERNELS)):
-        raise SystemExit(f"FAIL {label}: {api} launches a call, kernels "
-                         f"{device}")
-    names = []
+    fault = bwd_kernels_fault(device, dtype_name)
+    if api != len(BWD_KERNELS) or fault:
+        raise SystemExit(f"FAIL {label}: {api} launches a call, {fault}")
+    names, by_name = [], {}
     r = {"rel_err": dict(zip(("dq", "dk", "dv"), rel)),
          "max_abs_err": max_abs,
          "bound_rel": BWD_REL[dtype_name],
          "out_max_abs_err": float(out_err.max()),
          "lse_max_abs_err": float(lse_err.max()),
          "device_ms": device_ms(kernel, "flash_attention_bwd_", reps=5,
-                                names=names),
+                                names=names, by_name=by_name),
          "ms": time_ms(kernel, reps=5, batch=2),
          "plain_ms": time_ms(plain, reps=3, batch=1)}
     ok = sdpa_mask(S, window, causal)
@@ -1683,6 +1713,11 @@ def hold_flash_bwd(B, S, H, K, hd, window, causal, dtype_name, rate):
         esize * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S,
         dtype_name, rate)
     r["kernels"] = names
+    # the D pre-pass, the dK/dV and the dQ kernel apart
+    r["device_ms_by_kernel"] = {
+        part: sum(ms for name, ms in by_name.items()
+                  if f"bwd_{part}_kernel" in name)
+        for part in ("dot", "dkdv", "dq")}
     print(f"hold {label}: within {BWD_REL[dtype_name]} of max |plain|, two "
           "calls bit-identical, three kernels a call, " + json.dumps(r),
           flush=True)
@@ -3548,8 +3583,9 @@ def main() -> int:
         "max_abs_err": max(h["max_abs_err"] for h in bwd_holds.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "device_ms": r["device_ms"], "shape": list(shape[:5]),
-        "dtype": "bfloat16", "kernels_per_call": 3})
+        "device_ms": r["device_ms"],
+        "device_ms_by_kernel": r["device_ms_by_kernel"],
+        "shape": list(shape[:5]), "dtype": "bfloat16", "kernels_per_call": 3})
     # the WKV scan at the RWKV serving path's shapes (its inputs are f32 in
     # the model whatever the params' dtype), from 2e: the prefill and, under
     # "decode_step", one decode step on the cache's state

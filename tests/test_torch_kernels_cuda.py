@@ -512,7 +512,8 @@ def test_moe_model_on_the_card_matches_the_cpu(no_tf32):
 # ---------------------------------------------------------------------------
 # the flash backward: its kernels sum in another order than the plain
 # formula, so dq, dk, dv are held within chip_smoke.BWD_REL of each tensor's
-# max |plain|; it uses no atomics, so two calls are bit-identical
+# max |plain|; it uses no atomics, so two calls are bit-identical.  bf16
+# runs the tensor-core kernels (``_mma``), f32 the FMA ones, by dtype
 
 
 BWD_CASES = [
@@ -523,6 +524,10 @@ BWD_CASES = [
     (2, 100, 100, 10, 5, 80, False, 24), (1, 1, 1, 4, 2, 128, True, None),
     (1, 100, 37, 8, 2, 128, True, None), (1, 37, 100, 8, 2, 128, True, None),
     (1, 64, 200, 8, 2, 16, False, 50), (1, 300, 300, 32, 8, 128, True, None)]
+# the tile edges of the mma kernels (64 keys a dK/dV CTA, 16 a warp; query
+# tiles of 32 or 64; 64 query rows a dQ CTA): Sq, Sk around one and two
+# tiles, causal (Sq != Sk among them) and windowed
+EDGE_LENGTHS = (63, 64, 65, 127, 128, 129)
 
 
 def _bwd_inputs(B, Sq, Sk, H, K, hd, dtype, seed):
@@ -532,11 +537,9 @@ def _bwd_inputs(B, Sq, Sk, H, K, hd, dtype, seed):
                       (B, Sq, H, hd))]
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window", BWD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_kernel_matches_plain_version(no_tf32, B, Sq, Sk, H,
-                                                     K, hd, causal, window,
-                                                     dtype):
+def _hold_bwd(B, Sq, Sk, H, K, hd, causal, window, dtype):
+    """The backward kernels against their plain version at one shape: dq,
+    dk, dv within BWD_REL of max |plain|, two calls bit-identical."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v, dout = _bwd_inputs(B, Sq, Sk, H, K, hd, dtype, Sq * 31 + hd)
     out, lse = fa._launch_forward(q, k, v, causal, window, True)
@@ -552,7 +555,8 @@ def test_flash_backward_kernel_matches_plain_version(no_tf32, B, Sq, Sk, H,
     assert fa.flash_attention_bwd.launches == before + 2
     want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                         causal=causal, window=window)
-    bound = chip_smoke.BWD_REL[str(dtype).split(".")[-1]]
+    dtype_name = str(dtype).split(".")[-1]
+    bound = chip_smoke.BWD_REL[dtype_name]
     # with one key P = 1, so dq and dk are 0 up to the rounding of dP - D,
     # two f32 sums of hd products |dout| |v|: held to that, not to max |c|
     cancel = (torch.finfo(torch.float32).eps * hd
@@ -563,6 +567,50 @@ def test_flash_backward_kernel_matches_plain_version(no_tf32, B, Sq, Sk, H,
         tol = (cancel if Sk == 1 and name != "dv"
                else bound * float(c.float().abs().max()))
         assert float((a.float() - c.float()).abs().max()) <= tol, name
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain_version(no_tf32, B, Sq, Sk, H,
+                                                     K, hd, causal, window,
+                                                     dtype):
+    _hold_bwd(B, Sq, Sk, H, K, hd, causal, window, dtype)
+
+
+@pytest.mark.parametrize("Sq", EDGE_LENGTHS)
+@pytest.mark.parametrize("Sk", EDGE_LENGTHS)
+@pytest.mark.parametrize("window", [None, 70])
+def test_flash_backward_kernel_at_tile_edges(no_tf32, Sq, Sk, window):
+    _hold_bwd(1, Sq, Sk, 8, 2, 128, True, window, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_runs_the_dtypes_kernels(no_tf32, hd, dtype):
+    """At every head dim the kernels take, one call is three launches: in
+    bf16 the D pre-pass and the tensor-core (``_mma``) dK/dV and dQ
+    kernels, in f32 the FMA ones (the profiler's names)."""
+    from repro_torch.kernels import flash_attention as fa
+    assert hd in fa.HEAD_DIMS
+    q, k, v, dout = _bwd_inputs(1, 100, 100, 4, 2, hd, dtype, hd)
+    out, lse = fa._launch_forward(q, k, v, True, None, True)
+    device, api = chip_smoke.kernels_per_call(
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout), reps=3,
+        tries=5)
+    assert api == 3
+    assert chip_smoke.bwd_kernels_fault(
+        device, str(dtype).split(".")[-1]) is None
+
+
+# G = 5 and hd 256 at ragged lengths, windowed and not, causal and not
+@pytest.mark.parametrize("B,Sq,Sk,H,K,hd,causal,window", [
+    (1, 129, 65, 10, 2, 80, True, 70), (2, 65, 129, 25, 5, 64, True, None),
+    (1, 127, 127, 10, 2, 256, True, 33), (1, 65, 129, 4, 2, 256, False, 40),
+    (1, 129, 64, 4, 1, 256, True, None), (1, 200, 200, 5, 1, 32, False, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_other_groupings(no_tf32, B, Sq, Sk, H, K, hd,
+                                               causal, window, dtype):
+    _hold_bwd(B, Sq, Sk, H, K, hd, causal, window, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -24,7 +24,10 @@ profiler's device ms of one call, averaged over 25.
 - ``flash_attention`` (within ``chip_smoke.ATTN_TOL``, bf16 and f32) at
   the checkout's ``chip_smoke.FLASH_HOLDS``, as serving calls it (no
   log-sum-exp), and, where the checkout's forward can write one, with its
-  log-sum-exp as a training step calls it (``lse`` keys).
+  log-sum-exp as a training step calls it (``lse`` keys);
+- ``flash_attention_bwd`` (within ``chip_smoke.BWD_REL`` of max |plain|,
+  bf16 and f32) at the checkout's ``chip_smoke.FLASH_BWD_HOLDS``, fed the
+  checkout's forward output and log-sum-exp (``bwd`` keys).
 
 One JSON line per checkout, with the card's name and power limit.  To
 compare two commits, unpack the parent into a directory that .gitignore
@@ -134,6 +137,31 @@ def time_checkout(root):
                 out[key + " lse"] = cs.device_ms(
                     lambda: fa._launch_forward(q, k, v, causal, window, True),
                     "flash_attention_kernel")
+    for B, S, H, K, hd, window, causal in getattr(cs, "FLASH_BWD_HOLDS", ()):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = cs.attn_inputs((B, S, H, hd), (B, S, K, hd), dtype,
+                                     S + hd)
+            dout = torch.randn(q.shape, generator=torch.Generator(
+                device="cuda").manual_seed(S), device="cuda", dtype=dtype)
+            o, lse = fa._launch_forward(q, k, v, causal, window, True)
+
+            def bwd():
+                return fa.flash_attention_bwd(q, k, v, o, lse, dout,
+                                              causal=causal, window=window)
+
+            name = str(dtype).split(".")[1]
+            for a, b in zip(bwd(), fa.flash_attention_bwd_plain(
+                    q, k, v, o, lse, dout, causal=causal, window=window)):
+                if float((a.float() - b.float()).abs().max()) > (
+                        cs.BWD_REL[name] * float(b.float().abs().max())):
+                    raise SystemExit(f"{root}: flash backward "
+                                     f"{(B, S, H, K, hd)} {dtype} outside "
+                                     "BWD_REL")
+            key = (f"bwd {B},{S},{H},{K},{hd},{window},{int(causal)} "
+                   f"{dtype}")
+            out[key] = cs.device_ms(bwd, "flash_attention_bwd_", reps=5)
+            del q, k, v, dout, o, lse
+            torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 
