@@ -73,6 +73,15 @@ Phases, in order; any failure exits non-zero:
        the plain version's and the backward of SDPA (``enable_gqa``, timed
        alone) milliseconds, the bound by operations (10 hd flops a visible
        pair);
+   (i) the router backward (``moe_routing_bwd``, three kernels a call where
+       T > ``DW_CHUNK``) against ``moe_routing_bwd_plain`` at phi3.5-moe's
+       training shape [T, D, E, k] = [8192, 4096, 16, 2], deepseek-v2's
+       [2048, 5120, 160, 6], a ragged [1000, 4000, 16, 2], a decode step's
+       [4, 4096, 16, 2], an underflowing probability and tied experts, x in
+       bf16 and f32: dx and dW bit-equal (the same roundings in the same
+       order), two calls bit-identical; the kernel's, its kernels' and the
+       plain version's milliseconds and the bound (3 x 2 T D E f32
+       operations, or the bytes); no one PyTorch call computes it;
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -191,6 +200,20 @@ Phases, in order; any failure exits non-zero:
    1,024] from the launcher's stub, 3 steps; each step 72 flash forwards,
    48 of them non-causal (the encoder's and the cross layers'), and 36
    backward calls, 24 non-causal; holds (i) and (ii) at full depth;
+5c. training the MoE family: phi3.5-moe-42b-a6.6b at full width with 4 of
+   its 32 layers (65.6 GB of train state; 5 would not fit the card), batch
+   2 x 4,096, 3 steps; each step 8 router forwards (4 and their remat
+   recomputation), 4 router backward calls, 8 flash forwards and 4 flash
+   backward calls, no decode or WKV launch; holds (i) step 0's loss against
+   the plain versions' (router and attention), (ii) one f32 step on 1 layer
+   on the kernels against the plain versions, (iii) resume equivalence at
+   the reduced size; the reckoned train state beside the measured peak;
+5d. training MLA: deepseek-v2-236b at full width with 1 of its 60 layers
+   (5.02 B parameters, 60.3 GB of train state), batch 1 x 2,048, 3 steps;
+   each step 2 router forwards and 1 router backward, no flash launch (MLA
+   takes the XLA-path attention); holds (i) and, in place of (ii), whose
+   f32 optimizer state would not fit, the f32 loss and every grad on the
+   kernels against the plain versions on that layer;
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -346,6 +369,25 @@ ROUTING_HOLDS = ((4096, 4096, 16, 2, "random"), (4, 4096, 16, 2, "random"),
                  (1000, 4000, 16, 2, "random"), (4096, 5120, 160, 6, "random"),
                  (4, 5120, 160, 6, "random"),
                  (512, 4096, 16, 2, "underflow"), (512, 4096, 16, 2, "tie"))
+# the router backward (T, D, E, top_k, case): phi3.5-moe's training T (2 x
+# 4,096 tokens) and deepseek-v2's (1 x 2,048), a ragged shape, a decode
+# step's T, the underflow and the tie case; held bit for bit (kernel and
+# plain version do the same roundings in the same order)
+ROUTING_BWD_HOLDS = ((8192, 4096, 16, 2, "random"),
+                     (2048, 5120, 160, 6, "random"),
+                     (1000, 4000, 16, 2, "random"), (4, 4096, 16, 2, "random"),
+                     (512, 4096, 16, 2, "underflow"),
+                     (512, 4096, 16, 2, "tie"))
+# the MoE training cells: phi3.5-moe at full width with 4 of its 32 layers
+# (one layer holds 1.300 B parameters and the untied embeddings 0.263 B; at
+# 12 bytes a parameter, bf16 param and grad and f32 m and v, 4 layers are
+# 65.6 GB of train state and 5 would be 81.2 GB), batch 2 x 4,096 (5a's),
+# its f32 step held on 1 layer; deepseek-v2 at full width with 1 of its 60
+# layers (5.02 B parameters with the embeddings, 60.3 GB of train state; 2
+# layers would be 108 GB), batch 1 x 2,048, its f32 loss and grads (no
+# optimizer step: an f32 step's state is 4 x 20 GB) held on that layer
+MOE_TRAIN_LAYERS, MOE_TRAIN_F32_LAYERS = 4, 1
+MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 1, 1, 2048
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -1913,6 +1955,63 @@ def router_designs(T, D, E, top_k, rate):
     return r
 
 
+def routing_bwd_inputs(T, D, E, dtype, seed, case="random", device="cuda"):
+    """``routing_inputs`` and the gates' cotangent dg [T, E] f32 (standard
+    normal) from the next numpy seed."""
+    import torch
+    x, w = routing_inputs(T, D, E, dtype, seed, case, device)
+    dg = np.random.default_rng(seed + 1).standard_normal((T, E),
+                                                         dtype=np.float32)
+    return x, w, torch.from_numpy(dg).to(device)
+
+
+def hold_routing_bwd(T, D, E, top_k, case, dtype_name, rate):
+    """``moe_routing_bwd`` against ``moe_routing_bwd_plain`` on the same
+    card inputs, dx and dW bit for bit, two calls bit-identical, and the
+    times: per call, on the device (its three kernels, each one's too) and
+    the plain version's; no one PyTorch call computes the function.  The
+    bound: 3 x 2 T D E f32 operations (the logits again, dx, dW) or the
+    bytes."""
+    import torch
+    from repro_torch.kernels import moe_routing as mr
+    x, w, dg = routing_bwd_inputs(T, D, E, getattr(torch, dtype_name),
+                                  T + D + E, case)
+    label = (f"moe_routing_bwd (T, D, E, k)={(T, D, E, top_k)} {case} "
+             f"x {dtype_name}")
+    before = mr.moe_routing_bwd.launches
+    dx, dw = mr.moe_routing_bwd(x, w, top_k, dg)
+    dx2, dw2 = mr.moe_routing_bwd(x, w, top_k, dg)
+    torch.cuda.synchronize()
+    pdx, pdw = mr.moe_routing_bwd_plain(x, w, top_k, dg)
+    repeat = (torch.equal(dx.view(torch.uint8), dx2.view(torch.uint8))
+              and torch.equal(dw.view(torch.uint8), dw2.view(torch.uint8)))
+    finite = bool(torch.isfinite(dx).all()) and bool(torch.isfinite(dw).all())
+    if (mr.moe_routing_bwd.launches != before + 2 or not repeat
+            or not finite or not (exact(dx, pdx) and exact(dw, pdw))):
+        raise SystemExit(
+            f"FAIL {label}: launches {mr.moe_routing_bwd.launches - before}, "
+            f"repeat bit-identical {repeat}, finite {finite}, max abs err "
+            f"dx {float((dx.float() - pdx.float()).abs().max())} dW "
+            f"{float((dw - pdw).abs().max())}")
+    # x, W and dg read, dx and dW written, once each
+    nbytes = 2 * T * D * x.element_size() + 2 * D * E * 4 + T * E * 4
+    bound_ms, bound_by = attn_bound(6 * T * D * E, nbytes, "float32", rate)
+    by_kernel = {}
+    r = {"max_abs_err": max_abs_err((dx, dw), (pdx, pdw)), "exact": True,
+         "repeat_bit_identical": True,
+         "ms": time_ms(lambda: mr.moe_routing_bwd(x, w, top_k, dg)),
+         "device_ms": device_ms(lambda: mr.moe_routing_bwd(x, w, top_k, dg),
+                                "moe_routing_bwd_", by_name=by_kernel),
+         "plain_ms": time_ms(lambda: mr.moe_routing_bwd_plain(x, w, top_k,
+                                                              dg),
+                             reps=3, batch=1),
+         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+         "device_ms_by_kernel": by_kernel}
+    print(f"hold {label}: bit-equal, repeat bit-identical, "
+          + json.dumps(r), flush=True)
+    return r
+
+
 def launch_floor_ms():
     """The card's floor for one launch: the profiler's device time of
     ``torch.add`` on two one-element f32 tensors."""
@@ -2720,10 +2819,12 @@ def serve_encdec(ecfg, device=None):
 
 
 def train_wrappers():
-    """The kernel wrappers a training step is counted by: the flash
-    forward and backward, and the three that must not launch."""
+    """The kernel wrappers a training step is counted by: the flash and
+    router forwards and backwards, and the two that must not launch."""
     from repro_torch.kernels import flash_attention as fa
-    return dict(kernel_wrappers(), flash_attention_bwd=fa.flash_attention_bwd)
+    from repro_torch.kernels import moe_routing as mr
+    return dict(kernel_wrappers(), flash_attention_bwd=fa.flash_attention_bwd,
+                moe_routing_bwd=mr.moe_routing_bwd)
 
 
 def plain_launch_forward(q, k, v, causal, window, with_lse):
@@ -2737,15 +2838,35 @@ def plain_launch_forward(q, k, v, causal, window, with_lse):
                                     window=window), None
 
 
+def plain_launch_routing(x, router_w, top_k, design):
+    """``moe_routing_plain`` in the place of the router kernel's launch."""
+    from repro_torch.kernels import moe_routing as mr
+    return mr.moe_routing_plain(x, router_w, top_k)
+
+
 def attention_plain_grad():
-    """The flash kernels' plain versions, forward and backward, in the
-    places where ``flash_attention`` and ``FlashAttentionFn`` launch them:
-    the same wiring (saved tensors, masks, casts) on the plain versions."""
+    """The flash and router kernels' plain versions, forward and backward,
+    in the places where ``flash_attention``, ``moe_routing`` and their
+    autograd Functions launch them: the same wiring (saved tensors, masks,
+    casts) on the plain versions."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_routing as mr
     return {"repro_torch.kernels.flash_attention._launch_forward":
             plain_launch_forward,
             "repro_torch.kernels.flash_attention.flash_attention_bwd":
-            fa.flash_attention_bwd_plain}
+            fa.flash_attention_bwd_plain,
+            "repro_torch.kernels.moe_routing._launch": plain_launch_routing,
+            "repro_torch.kernels.moe_routing.moe_routing_bwd":
+            mr.moe_routing_bwd_plain}
+
+
+def train_plains():
+    """The forward kernels' plain versions for a loss without a gradient:
+    the attention's and the router's, under the names the model looks them
+    up by."""
+    from repro_torch.kernels import moe_routing as mr
+    return dict(attention_plains(), **{
+        "repro_torch.models.layers.moe_routing": mr.moe_routing_plain})
 
 
 def patched(patches):
@@ -2798,7 +2919,8 @@ def mask_counts():
 def device_split(prof):
     """Device ms of a profiled window by kind of kernel, from its names."""
     from torch.autograd import DeviceType
-    split = {"flash_forward": 0.0, "flash_backward": 0.0, "gemm": 0.0,
+    split = {"flash_forward": 0.0, "flash_backward": 0.0,
+             "router_forward": 0.0, "router_backward": 0.0, "gemm": 0.0,
              "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
     n = 0
     for e in prof.events():
@@ -2806,7 +2928,11 @@ def device_split(prof):
             continue
         name, ms = e.name.lower(), e.time_range.elapsed_us() / 1e3
         n += 1
-        if "flash_attention_bwd_" in name:
+        if "moe_routing_bwd_" in name:
+            split["router_backward"] += ms
+        elif "moe_routing_kernel" in name:
+            split["router_forward"] += ms
+        elif "flash_attention_bwd_" in name:
             split["flash_backward"] += ms
         elif "flash_attention_kernel" in name:
             split["flash_forward"] += ms
@@ -2970,6 +3096,44 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
     return line
 
 
+def held_f32_grads(model, params, batch, wrappers):
+    """Hold (ii) where an f32 step's optimizer state does not fit the card:
+    the f32 loss and every leaf's grad (TF32 off) on the kernels against
+    the plain versions, the loss within ``TRAIN_F32_REL["loss"]`` and each
+    grad within ``TRAIN_F32_REL["grad"]`` of its leaf's max |plain|.  The
+    kernels' grads wait on the host while the plain run's are taken."""
+    import torch
+    from repro_torch._tree import tree_leaves_with_paths, tree_map
+    from repro_torch.training.train_step import loss_and_grads
+    runs = {}
+    for which in ("kernels", "plain"):
+        before = launch_counts(wrappers)
+        with patched(attention_plain_grad() if which == "plain" else {}):
+            loss, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        after = launch_counts(wrappers)
+        moved = {k: after[k] - before[k] for k in after}
+        if (which == "plain") != (not any(moved.values())):
+            raise SystemExit(f"FAIL f32 grads {model.cfg.name}: the {which} "
+                             f"run launched {moved}")
+        if which == "kernels":
+            grads = tree_map(lambda t: t.cpu(), grads)
+        runs[which] = (float(loss), grads)
+    (lk, gk), (lq, gq) = runs["kernels"], runs["plain"]
+    worst = {"loss": abs(lk - lq) / abs(lq), "grad": 0.0}
+    for (key, a), (_, b) in zip(tree_leaves_with_paths(gk),
+                                tree_leaves_with_paths(gq)):
+        worst["grad"] = max(worst["grad"], rel_to_max(a.to(b.device), b))
+    line = {"arch": model.cfg.name, "layers": model.cfg.n_layers,
+            "dtype": "float32", "held": "loss and grads, no optimizer step",
+            "loss_kernels": lk, "loss_plain": lq, "rel": worst,
+            "bound": {k: TRAIN_F32_REL[k] for k in worst}}
+    print("train_f32_grads " + json.dumps(line), flush=True)
+    if any(worst[k] > TRAIN_F32_REL[k] for k in worst):
+        raise SystemExit(f"FAIL f32 grads {model.cfg.name}: {line}")
+    return line
+
+
 def resume_check(arch, device=None):
     """Hold (iii) at the tests' reduced size: three steps straight against
     two steps, a checkpoint, a restore and the third step; every leaf of
@@ -3019,17 +3183,23 @@ def resume_check(arch, device=None):
                          "differ from the uninterrupted run")
 
 
-def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
-    """Phases 5a-5b on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
+def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
+               f32_hold="step", full_layers=None):
+    """Phases 5a-5d on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
     (the launcher's schedule rule) through ``make_train_step`` on batches
     of the launcher's ``DataLoader`` copy, each step's launches counted
-    from 0 and held: 2 L flash forwards (remat recomputes each layer's) and
-    L backward calls, counted by mask as well, no decode, WKV or routing
-    launch; step seconds, tokens/s, peak memory; one more profiled step.
-    Holds (i) step 0's loss against the plain attention's (forward, no
-    grad), (ii) ``held_f32_step`` on ``f32_cfg`` (its params drawn from
-    seed 0 after the bf16 state is freed), and with ``resume`` (iii)
-    ``resume_check``.  Returns the flash launches of the counted steps."""
+    from 0 and held: on F flash layers (all but MLA's) 2 F flash forwards
+    (remat recomputes each layer's) and F backward calls, counted by mask
+    as well; on M MoE layers 2 M router forwards and M router backward
+    calls; no decode or WKV launch; step seconds, tokens/s, peak memory
+    beside the reckoned train state (12 bytes a bf16 parameter: param,
+    grad, f32 m and v); one more profiled step.  Holds (i) step 0's loss
+    against the plain versions' (forward, no grad), (ii) on ``f32_cfg``
+    (its params drawn from seed 0 after the bf16 state is freed)
+    ``held_f32_step``, or with ``f32_hold="grads"`` ``held_f32_grads``,
+    and with ``resume`` (iii) ``resume_check``.  ``full_layers``: the
+    architecture's depth where ``cfg``'s is cut.  Returns (the launches of
+    the counted steps, the profile, the peak memory in GB)."""
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.models.decoder import build_layout
@@ -3047,29 +3217,34 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
                              .manual_seed(0), opt_cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    reckoned = 12 * n_params / 1e9
     E = cfg.encdec.n_enc_layers if cfg.encdec else 0
     L = cfg.n_layers
-    self_layers = sum(g.n for g in build_layout(cfg))
+    layout = build_layout(cfg)
+    flash_layers = sum(g.n for g in layout if not g.spec.mla)
+    moe_layers = sum(g.n for g in layout if g.spec.kind == "moe")
     cross_layers = L if cfg.encdec else 0
+    depth = f"{L} of {full_layers}" if full_layers else f"{L}"
+    moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}" if cfg.moe
+           else "")
     print(f"train params: {cfg.name} {cfg.dtype}, "
-          f"{f'{E} encoder + ' if E else ''}{L} layers x d_model "
-          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, remat "
+          f"{f'{E} encoder + ' if E else ''}{depth} layers x d_model "
+          f"{cfg.d_model}{moe}, {n_params / 1e9:.3f} B parameters, remat "
           f"{cfg.remat}, state {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-          f" GB in {time.perf_counter() - t0:.1f} s; batch {B} x {S}",
-          flush=True)
+          f" GB (reckoned train state {reckoned:.1f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; batch {B} x {S}", flush=True)
     batches = train_batches(cfg, B, S, TRAIN_STEPS + 1, model.device)
-    # (i) step 0's loss with the plain attention, forward only
-    with torch.no_grad(), patched(attention_plains()):
+    # (i) step 0's loss with the plain versions, forward only
+    with torch.no_grad(), patched(train_plains()):
         plain_loss = float(model.train_loss(state["params"], batches[0]))
-    calls = E + self_layers + cross_layers      # flash calls a forward
+    calls = E + flash_layers + cross_layers     # flash calls a forward
     non_causal = E + cross_layers
-    want = {"flash_attention": 2 * calls if cfg.remat else calls,
-            "flash_attention_bwd": calls, "decode_attention": 0,
-            "moe_routing": 0, "rwkv_scan": 0}
-    want_masks = {"forward": {"causal": want["flash_attention"]
-                              * (calls - non_causal) // calls,
-                              "non_causal": want["flash_attention"]
-                              * non_causal // calls},
+    fwd = 2 if cfg.remat else 1
+    want = {"flash_attention": fwd * calls, "flash_attention_bwd": calls,
+            "decode_attention": 0, "moe_routing": fwd * moe_layers,
+            "moe_routing_bwd": moe_layers, "rwkv_scan": 0}
+    want_masks = {"forward": {"causal": fwd * (calls - non_causal),
+                              "non_causal": fwd * non_causal},
                   "backward": {"causal": calls - non_causal,
                                "non_causal": non_causal}}
     step_fn = make_train_step(model, opt_cfg)
@@ -3096,7 +3271,8 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
             "grad_norm": float(metrics["grad_norm"]), "step_s": step_s,
             "tokens_per_s": B * S / step_s, "launches": got,
             "flash_calls_by_mask": masks,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reckoned_state_gb": reckoned}),
             flush=True)
         if got != want or masks != want_masks:
             raise SystemExit(f"FAIL train {cfg.name} step {step}: launches "
@@ -3108,7 +3284,7 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
             rel = abs(loss - plain_loss) / abs(plain_loss)
             print("train_loss_hold " + json.dumps(
                 {"arch": cfg.name, "dtype": cfg.dtype, "loss_kernels": loss,
-                 "loss_plain_attention": plain_loss, "rel": rel,
+                 "loss_plain": plain_loss, "rel": rel,
                  "bound": TRAIN_LOSS_REL}), flush=True)
             if rel > TRAIN_LOSS_REL:
                 raise SystemExit(f"FAIL train {cfg.name}: step 0's loss "
@@ -3116,9 +3292,9 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
     peak = torch.cuda.max_memory_allocated() / 1e9
     profile = profiled_step(model, state, batches[TRAIN_STEPS], opt_cfg)
     print("training " + json.dumps({
-        "arch": cfg.name, "dtype": cfg.dtype, "steps": TRAIN_STEPS,
-        "batch": B, "seq": S, "launches": totals,
-        "peak_memory_gb": peak}), flush=True)
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
+        "steps": TRAIN_STEPS, "batch": B, "seq": S, "launches": totals,
+        "peak_memory_gb": peak, "reckoned_state_gb": reckoned}), flush=True)
     del state, batches
     torch.cuda.empty_cache()
     # (ii) one f32 step, kernels against plain versions
@@ -3126,7 +3302,10 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None):
     params32 = model32.init_params(torch.Generator(device=model.device)
                                    .manual_seed(0))
     batch32 = train_batches(f32_cfg, B, S, 1, model.device)[0]
-    held_f32_step(model32, params32, batch32, opt_cfg, wrappers)
+    if f32_hold == "grads":
+        held_f32_grads(model32, params32, batch32, wrappers)
+    else:
+        held_f32_step(model32, params32, batch32, opt_cfg, wrappers)
     del params32, batch32
     torch.cuda.empty_cache()
     if resume:
@@ -3296,6 +3475,17 @@ def main() -> int:
                  for shape in FLASH_BWD_HOLDS}
     t_phase = phase_done("2h (flash backward)", t_phase)
 
+    # 2i. the router backward against its plain version, bit for bit
+    if _build.load("moe_routing_bwd").synergai_moe_routing_bwd_chunk() != \
+            mr.DW_CHUNK:
+        raise SystemExit("FAIL moe_routing_bwd: the kernel's dW chunk is "
+                         "not moe_routing.DW_CHUNK")
+    routing_bwd_holds = {shape + (dtype_name,): hold_routing_bwd(
+        *shape, dtype_name, rate) for dtype_name in ("bfloat16", "float32")
+        for shape in ROUTING_BWD_HOLDS}
+    torch.cuda.empty_cache()
+    t_phase = phase_done("2i (router backward)", t_phase)
+
     # 3, 3f-3g. the scheduling path at full size, drift, the comparison
     sched = scheduling_path()
     fleet = sched.fleet
@@ -3463,6 +3653,25 @@ def main() -> int:
         dataclasses.replace(ecfg, dtype="float32"))
     t_phase = phase_done(f"5b (train {ENCDEC_ARCH})", t_phase)
 
+    # 5c-5d. training the MoE family at full width: phi3.5-moe with 4 of
+    # its 32 layers (its f32 step on 1, resume equivalence at the reduced
+    # size), deepseek-v2 (MLA) with 1 of its 60 (its f32 loss and grads)
+    pcfg = dataclasses.replace(get_config(MOE_ARCH),
+                               n_layers=MOE_TRAIN_LAYERS)
+    moe_train_launches, moe_train_profile, moe_train_peak = train_cell(
+        pcfg, TRAIN_BATCH, TRAIN_SEQ,
+        dataclasses.replace(pcfg, n_layers=MOE_TRAIN_F32_LAYERS,
+                            dtype="float32"),
+        resume=True, full_layers=get_config(MOE_ARCH).n_layers)
+    t_phase = phase_done(f"5c (train {MOE_ARCH})", t_phase)
+    tdcfg = dataclasses.replace(get_config(MLA_ARCH),
+                                n_layers=MLA_TRAIN_LAYERS)
+    mla_train_launches, mla_train_profile, mla_train_peak = train_cell(
+        tdcfg, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ,
+        dataclasses.replace(tdcfg, dtype="float32"), f32_hold="grads",
+        full_layers=get_config(MLA_ARCH).n_layers)
+    t_phase = phase_done(f"5d (train {MLA_ARCH})", t_phase)
+
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
     print("launch floor: " + json.dumps(
@@ -3555,7 +3764,8 @@ def main() -> int:
                  ENCDEC_ARCH: encdec_launches[kname]}
         if kname == "flash_attention":   # the training steps' forwards
             paths.update({f"train {TRAIN_ARCH}": train_launches[kname],
-                          f"train {ENCDEC_ARCH}": etrain_launches[kname]})
+                          f"train {ENCDEC_ARCH}": etrain_launches[kname],
+                          f"train {MOE_ARCH}": moe_train_launches[kname]})
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
@@ -3572,7 +3782,8 @@ def main() -> int:
              tcfg.head_dim, None, True)
     r = bwd_holds[shape + ("bfloat16",)]
     paths = {f"train {TRAIN_ARCH}": train_launches["flash_attention_bwd"],
-             f"train {ENCDEC_ARCH}": etrain_launches["flash_attention_bwd"]}
+             f"train {ENCDEC_ARCH}": etrain_launches["flash_attention_bwd"],
+             f"train {MOE_ARCH}": moe_train_launches["flash_attention_bwd"]}
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -3625,7 +3836,9 @@ def main() -> int:
                   shape=list(shape[:4]))
         for key, shape in mla_shapes.items()}
     paths = {MOE_ARCH: moe_launches["moe_routing"],
-             MLA_ARCH: mla_launches["moe_routing"]}
+             MLA_ARCH: mla_launches["moe_routing"],
+             f"train {MOE_ARCH}": moe_train_launches["moe_routing"],
+             f"train {MLA_ARCH}": mla_train_launches["moe_routing"]}
     rows.append({
         "name": "moe_routing", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_routing.cu",
@@ -3640,6 +3853,34 @@ def main() -> int:
         "decode_step": dict({k: dec[k] for k in TIMES + ("bound_by",)},
                             shape=list(dec_shape[:4])),
         MLA_ARCH: mla_holds})
+    # the router backward at phi3.5-moe's training shape (x in bf16, the
+    # model's), from 2i, and at deepseek-v2's; its launches over the two
+    # MoE training paths' counted steps
+    shapes = {"main": (TRAIN_BATCH * TRAIN_SEQ, pcfg.d_model,
+                       pcfg.moe.n_experts, pcfg.moe.top_k, "random"),
+              MLA_ARCH: (MLA_TRAIN_BATCH * MLA_TRAIN_SEQ, tdcfg.d_model,
+                         tdcfg.moe.n_experts, tdcfg.moe.top_k, "random")}
+    r = routing_bwd_holds[shapes["main"] + ("bfloat16",)]
+    rm = routing_bwd_holds[shapes[MLA_ARCH] + ("bfloat16",)]
+    paths = {f"train {MOE_ARCH}": moe_train_launches["moe_routing_bwd"],
+             f"train {MLA_ARCH}": mla_train_launches["moe_routing_bwd"]}
+    rows.append({
+        "name": "moe_routing_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_routing_bwd.cu",
+        "replaces": "src/repro/training/train_step.py:40 (no Pallas "
+                    "kernel: jax.value_and_grad through the router of "
+                    "src/repro/models/layers.py:311)",
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": max(h["max_abs_err"]
+                           for h in routing_bwd_holds.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "device_ms": r["device_ms"],
+        "device_ms_by_kernel": r["device_ms_by_kernel"],
+        "shape": list(shapes["main"][:4]), "dtype": "bfloat16",
+        MLA_ARCH: dict({k: rm[k] for k in TIMES + ("bound_by",
+                                                   "device_ms_by_kernel")},
+                       shape=list(shapes[MLA_ARCH][:4]))})
     for line, key in ((profile_line, "decode_attention_share"),
                       (rwkv_profile, "wkv_share"),
                       (moe_profile, "moe_routing_share"),
@@ -3656,7 +3897,9 @@ def main() -> int:
         {k: hymba_prefill[k] for k in ("host_s", "device_ms", "idle_share",
                                        "mamba_recurrence_share")}))
     for line, peak in ((train_profile, train_peak),
-                       (etrain_profile, etrain_peak)):
+                       (etrain_profile, etrain_peak),
+                       (moe_train_profile, moe_train_peak),
+                       (mla_train_profile, mla_train_peak)):
         print(f"train step {line['arch']}: " + json.dumps(
             {**{k: line[k] for k in ("host_ms", "device_ms", "idle_share",
                                      "device_ms_by_kind",

@@ -16,10 +16,12 @@ VLM's gated cross-attention layers over a context input), ``"hymba"``
 ``mode="train"`` runs every layer with no cache, each under
 ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set, the
 counterpart of the JAX stack's ``jax.checkpoint(..., nothing_saveable)``:
-the backward recomputes a layer's activations from its input.  The dense
-kinds (no MoE, no MLA), ``cross`` and ``encdec_dec`` train; a family with
-another kind, and the VLM, raise ``NotImplementedError`` naming the later
-training slice they wait for (``training_waits_for``).  The JAX stack's
+the backward recomputes a layer's activations from its input (the router
+kernel's forward among them, whose picks come out the same).  The
+``dense``, ``moe`` (with and without MLA), ``cross`` and ``encdec_dec``
+kinds train; a family with another kind, and the VLM, raise
+``NotImplementedError`` naming the later training slice they wait for
+(``training_waits_for``).  The JAX stack's
 ``constrain_seq`` is a no-op off a device mesh and waits for the sharding
 slice.
 """
@@ -158,13 +160,12 @@ def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
 
 # the layer kinds that do not train yet, and the slice each waits for
 _KIND_TRAINING = {"rwkv": layers.RWKV_TRAINING,
-                  "hymba": layers.HYMBA_TRAINING,
-                  "moe": layers.MOE_TRAINING}   # MLA layers are "moe" layers
+                  "hymba": layers.HYMBA_TRAINING}
 
 
 def training_waits_for(cfg: ModelConfig) -> Optional[str]:
     """The later training slice that ``cfg``'s family waits for, or None
-    where the port trains it (dense, encoder-decoder)."""
+    where the port trains it (dense, MoE, MLA, encoder-decoder)."""
     if cfg.family == "vlm":
         return layers.VLM_TRAINING
     return next((_KIND_TRAINING[g.spec.kind] for g in build_layout(cfg)

@@ -22,11 +22,12 @@ with its conv and state cache.
     mamba_branch(params, cfg, x, *, mode, cache) -> (y, {"conv", "ssm"})
 
 ``mode``: "train" | "prefill" | "decode".  "train" runs the full sequence
-with no cache, as prefill does, and returns None for the cache: the GQA and
-cross-attention sublayers train (the flash kernel has a backward); MLA, the
-RWKV mixes and the Mamba branch raise ``NotImplementedError`` naming the
-later training slice each waits for (``RWKV_TRAINING``, ``MOE_TRAINING``,
-``HYMBA_TRAINING``);
+with no cache, as prefill does, and returns None for the cache: the GQA,
+cross-attention and MLA sublayers and the MoE FFN train (the flash and
+router kernels have backwards; MLA's attention is the XLA-path ports, which
+autograd differentiates); the RWKV mixes and the Mamba branch raise
+``NotImplementedError`` naming the later training slice each waits for
+(``RWKV_TRAINING``, ``HYMBA_TRAINING``);
 ``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), the cross cache
 {"ck", "cv"} [B, S_ctx, K, hd], the MLA latent cache {"ckv" [B, buf, R],
 "krope" [B, buf, rope]}, or the RWKV cache {"state" [B, H, hd, hd] f32,
@@ -73,8 +74,6 @@ from repro_torch.models.common import (apply_rope, attention, dense_init,
 # the later training slices the layers that do not train yet wait for
 RWKV_TRAINING = ("the RWKV training slice (a WKV-scan backward and "
                  "chunked_time_scan)")
-MOE_TRAINING = ("the MoE/MLA training slice (a router backward: the gates "
-                "carry the router's gradient)")
 HYMBA_TRAINING = ("the hymba training slice (the Mamba recurrence under "
                   "chunked_time_scan)")
 VLM_TRAINING = ("the VLM training slice (a depth cut or sharding: 9.8 B "
@@ -264,8 +263,8 @@ def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
     projection, so decode attends in the rank-R latent space as MQA (q and
     k of R + rope dims, v of R).  As in the JAX layer, the scores are then
     divided by sqrt(R + rope), q's width there, not sqrt(nope + rope): the
-    two modes are not the same function."""
-    refuse_train(mode, "MLA", MOE_TRAINING)
+    two modes are not the same function.  "train" is prefill with no
+    cache."""
     m = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
@@ -295,9 +294,10 @@ def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
         krope_full = _cache_write(cache["krope"], k_rope, pos)
         new_cache = {"ckv": ckv_full, "krope": krope_full}
         k_valid, causal = pos + 1, False
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         ckv_full, krope_full = ckv, k_rope
-        new_cache = {"ckv": ckv, "krope": k_rope}
+        new_cache = ({"ckv": ckv, "krope": k_rope} if mode == "prefill"
+                     else None)
         k_valid, causal = None, True
     else:
         raise ValueError(f"mode {mode!r}")

@@ -32,8 +32,8 @@ family of the registry runs (dense, MoE with MLA too, RWKV, hybrid hymba,
 VLM, encoder-decoder).  ``train_loss`` (a batch of ``tokens`` and
 ``labels`` [B, S], an encoder-decoder's with ``audio_embeds``) is the JAX
 package's: the decoder stack in train mode, then ``chunked_ce_loss``.  The
-dense and encoder-decoder families train; the others raise
-``NotImplementedError`` naming the training slice they wait for
+dense, MoE (with MLA too) and encoder-decoder families train; the others
+raise ``NotImplementedError`` naming the training slice they wait for
 (``decoder.training_waits_for``).
 """
 

@@ -7,8 +7,10 @@ updates params, m and v in place (the step counter is a new tensor): a
 train state of qwen3-4b is 53 GB (8.8 GB bf16 params, 8.8 GB grads, 35.3 GB
 f32 moments), and an update that built the expression's f32 temporaries
 over a whole stacked leaf (the 36-layer MLP weights, 0.9 B elements) would
-take several GB for each.  So each leaf is updated in slices along its
-first dimension of at most ``CHUNK`` elements; the update is elementwise,
+take several GB for each.  So each leaf is updated in slices of at most
+``CHUNK`` elements, along its first dimension, and where one index of it
+holds more (a stack of one layer: deepseek-v2's experts, 1.26 B elements
+a layer), along the next dimension within it; the update is elementwise,
 so slicing changes none of its numbers.  The global norm sums each slice's
 squares in f32, then each leaf's slices and the leaves in order: a
 summation order of its own, as the JAX package's is XLA's.
@@ -65,11 +67,16 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def _slices(t):
-    """Views of ``t`` along its first dimension, each of at most ``CHUNK``
-    elements (one slice for a 0-d tensor)."""
+    """Views of ``t`` of at most ``CHUNK`` elements each, in index order:
+    runs of whole rows along its first dimension, or, where one row holds
+    more, each row's own slices (a 1-D tensor longer than ``CHUNK`` is cut
+    into runs of elements)."""
     if t.dim() == 0 or t.numel() <= CHUNK:
         return [t]
-    rows = max(1, CHUNK // (t.numel() // t.shape[0]))
+    row = t.numel() // t.shape[0]
+    if row > CHUNK:
+        return [s for i in range(t.shape[0]) for s in _slices(t[i])]
+    rows = CHUNK // row
     return [t[i:i + rows] for i in range(0, t.shape[0], rows)]
 
 

@@ -510,6 +510,108 @@ def test_moe_model_on_the_card_matches_the_cpu(no_tf32):
 
 
 # ---------------------------------------------------------------------------
+# the router backward: its kernels and moe_routing_bwd_plain do the same f32
+# roundings in the same order, so dx and dW are held bit for bit; it uses
+# no atomics, so two calls are bit-identical.  T past mr.DW_CHUNK takes the
+# merge of the chunks' partials
+
+
+ROUTER_BWD_CASES = [
+    (1, 64, 16, 2, "random"), (37, 100, 8, 3, "random"),
+    (300, 4096, 16, 2, "random"), (129, 513, 160, 6, "random"),
+    (64, 256, 16, 2, "underflow"), (64, 256, 16, 2, "tie"),
+    (16, 33, 5, 5, "random"), (17, 31, 1, 1, "random"),
+    (4, 4000, 256, 8, "random"), (mr.DW_CHUNK, 96, 16, 2, "random"),
+    (mr.DW_CHUNK + 1, 96, 16, 2, "random"), (1000, 4000, 16, 2, "random"),
+    (2 * mr.DW_CHUNK + 77, 130, 24, 3, "random"),
+    (2048, 5120, 160, 6, "random")]
+
+
+@pytest.mark.parametrize("T,D,E,k,case", ROUTER_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_router_backward_kernel_matches_plain_version(card, T, D, E, k, case,
+                                                      dtype):
+    x, w, dg = chip_smoke.routing_bwd_inputs(T, D, E, dtype, T + D + E, case)
+    before = mr.moe_routing_bwd.launches
+    dx, dw = mr.moe_routing_bwd(x, w, k, dg)
+    again = mr.moe_routing_bwd(x, w, k, dg)
+    torch.cuda.synchronize()
+    assert mr.moe_routing_bwd.launches == before + 2
+    assert dx.dtype == dtype and dx.shape == (T, D) and dw.shape == (D, E)
+    want = mr.moe_routing_bwd_plain(x, w, k, dg)
+    for a, b, c in zip((dx, dw), again, want):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        assert chip_smoke.exact(a, c) and bool(torch.isfinite(a).all())
+
+
+def test_router_backward_takes_no_token_without_a_launch(card):
+    from repro_torch.kernels import _build
+    lib = _build.load("moe_routing_bwd")
+    assert lib.synergai_moe_routing_bwd_chunk() == mr.DW_CHUNK
+    x, w, dg = chip_smoke.routing_bwd_inputs(0, 64, 16, torch.bfloat16, 0)
+    before = mr.moe_routing_bwd.launches
+    dx, dw = mr.moe_routing_bwd(x, w, 2, dg)
+    assert mr.moe_routing_bwd.launches == before
+    assert dx.shape == (0, 64) and dw.is_cuda and not dw.any()
+    with pytest.raises(ValueError, match="dgates"):
+        mr.moe_routing_bwd(x, w, 2, dg.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routing_gradient_launches_both_kernels(card, dtype):
+    """Under grad, ``moe_routing`` on card tensors goes through
+    ``MoeRoutingFn``: one forward launch with the gates' bits, one backward
+    launch whose dx and dW are the plain backward's."""
+    x, w, dg = chip_smoke.routing_bwd_inputs(300, 512, 16, dtype, 3)
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    before = (mr.moe_routing.launches, mr.moe_routing_bwd.launches)
+    gates, mask = mr.moe_routing(*leaves, 2)
+    got = torch.autograd.grad((gates * dg).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (mr.moe_routing.launches, mr.moe_routing_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert not mask.requires_grad
+    assert chip_smoke.exact(gates.detach(), mr.moe_routing_plain(x, w, 2)[0])
+    for a, b in zip(got, mr.moe_routing_bwd_plain(x, w, 2, dg)):
+        assert chip_smoke.exact(a, b)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
+def test_moe_models_train_on_the_card_like_the_cpu(no_tf32, arch):
+    """The reduced MoE models (remat on) on the card: 2 router forwards
+    and 1 backward a layer, flash 2 and 1 on phi3.5-moe's attention and
+    none on MLA's; the loss within 1e-5 and every grad within 1e-4 of its
+    max |CPU| of the CPU run's (the attention sums in other orders)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = reduced(get_config(arch), remat=True)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    wrappers = (mr.moe_routing, mr.moe_routing_bwd, fa.flash_attention,
+                fa.flash_attention_bwd)
+    before = [f.launches for f in wrappers]
+    loss, grads = loss_and_grads(gpu, _to(params, gpu.device),
+                                 _to(batch, gpu.device))
+    L = cfg.n_layers
+    flash = 0 if cfg.mla else L
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [
+        2 * L, L, 2 * flash, flash]
+    want_loss, want = loss_and_grads(cpu, params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for a, c in zip(tree_leaves(grads), tree_leaves(want)):
+        assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(
+            c.abs().max())
+
+
+# ---------------------------------------------------------------------------
 # the flash backward: its kernels sum in another order than the plain
 # formula, so dq, dk, dv are held within chip_smoke.BWD_REL of each tensor's
 # max |plain|; it uses no atomics, so two calls are bit-identical.  bf16
@@ -644,12 +746,9 @@ def test_kernels_without_a_backward_refuse_gradients(card):
     r, kk, vv, w = (torch.rand((1, 4, 2, 16), device="cuda")
                     for _ in range(4))
     u = torch.zeros((2, 16), device="cuda")
-    x = torch.randn((4, 64), device="cuda")
-    router = torch.randn((64, 16), device="cuda")
     calls = {"decode_attention": lambda t: da.decode_attention(t, k, v, 8),
-             "rwkv_scan": lambda t: rs.rwkv_scan(t, kk, vv, w, u),
-             "moe_routing": lambda t: mr.moe_routing(x, t, 2)}
-    firsts = {"decode_attention": q, "rwkv_scan": r, "moe_routing": router}
+             "rwkv_scan": lambda t: rs.rwkv_scan(t, kk, vv, w, u)}
+    firsts = {"decode_attention": q, "rwkv_scan": r}
     for name, call in calls.items():
         leaf = firsts[name].clone().requires_grad_()
         with pytest.raises(NotImplementedError, match="training slice"):

@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s MLA, VLM, hybrid and encoder-decoder serving phases
-(4d-4g) and its training phases (5a-5b) rehearsed on the CPU at the reduced
+(4d-4g) and its training phases (5a-5d) rehearsed on the CPU at the reduced
 configs' size.
 
 The phases are the functions the card run calls (``serve_mla``,
@@ -14,8 +14,9 @@ on the encoder, cross and self layers, non-causal and causal counted apart,
 and decode attention on the self layers) and their parity holds then run as
 on the card.  The training phases (``train_cell``) run three steps with
 remat on, so each step launches flash twice a layer (the forward and its
-recomputation) and its backward once, counted by mask on seamless-m4t; their
-holds (i)-(iii) run as on the card."""
+recomputation) and its backward once, counted by mask on seamless-m4t, and
+the router likewise on the MoE layers (MLA's attention launches neither
+flash kernel); their holds (i)-(iii) run as on the card."""
 
 import dataclasses
 import importlib.util
@@ -60,16 +61,19 @@ def rehearsal(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     counted = {}
-    # the forward launches nothing where chip_smoke's plain reference has
-    # patched the plain version in over its launch (``_launch_forward``)
-    launch_forward = fa._launch_forward
+    # a forward launches nothing where chip_smoke's plain reference has
+    # patched the plain version in over its launch (``_launch_forward``,
+    # ``_launch``)
+    launch_forward, launch_routing = fa._launch_forward, mr._launch
     forward_launches = {"flash_attention":
-                        lambda: fa._launch_forward is launch_forward}
+                        lambda: fa._launch_forward is launch_forward,
+                        "moe_routing": lambda: mr._launch is launch_routing}
     for module, name, homes in (
             (fa, "flash_attention", [common]),
             (fa, "flash_attention_bwd", []),
             (da, "decode_attention", [common]),
             (mr, "moe_routing", [layers]),
+            (mr, "moe_routing_bwd", []),
             (rs, "rwkv_scan", [layers])):
         fn = counting(getattr(module, name),
                       forward_launches.get(name, lambda: True))
@@ -172,7 +176,7 @@ def test_train_dense_phase_runs_on_the_cpu(rehearsal, capsys):
                                                   resume=True, device="cpu")
     assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
                       "decode_attention": 0, "moe_routing": 0,
-                      "rwkv_scan": 0}
+                      "moe_routing_bwd": 0, "rwkv_scan": 0}
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3
     for tag in ("train_loss_hold ", "train_profile ", "training ",
@@ -190,8 +194,44 @@ def test_train_encdec_phase_runs_on_the_cpu(rehearsal, capsys):
     totals, _, _ = chip_smoke.train_cell(cfg, 2, 32, f32, device="cpu")
     assert totals == {"flash_attention": 36, "flash_attention_bwd": 18,
                       "decode_attention": 0, "moe_routing": 0,
-                      "rwkv_scan": 0}
+                      "moe_routing_bwd": 0, "rwkv_scan": 0}
     out = capsys.readouterr().out
     assert out.count('"forward": {"causal": 4, "non_causal": 8}, '
                      '"backward": {"causal": 2, "non_causal": 4}') == 3
     assert "train_f32_step " in out and "train_resume " not in out
+
+
+def test_train_moe_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5c on the reduced phi3.5-moe in bf16 with remat (2 layers; the
+    f32 step on its first layer): each of 3 steps launches the router 2 x 2
+    times and its backward 2 times, flash 2 x 2 times and its backward 2
+    times; holds (i)-(iii) pass, the plain runs launching nothing."""
+    cfg, f32 = train_configs("phi3.5-moe-42b-a6.6b", f32_layers=1)
+    totals, profile, _ = chip_smoke.train_cell(cfg, 2, 64, f32, resume=True,
+                                               device="cpu", full_layers=32)
+    assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
+                      "decode_attention": 0, "moe_routing": 12,
+                      "moe_routing_bwd": 6, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert out.count("train_step ") == 3 and "2 of 32 layers" in out
+    for tag in ("train_loss_hold ", "train_profile ", "train_f32_step ",
+                '"bit_equal": true', "4 experts top-2"):
+        assert tag in out, tag
+    assert profile["arch"] == cfg.name
+
+
+def test_train_mla_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5d on the reduced deepseek-v2 in bf16 with remat, cut to 1
+    layer: each of 3 steps launches the router twice and its backward
+    once, flash never (MLA takes the XLA-path attention); the f32 loss and
+    grads held in place of a full f32 step."""
+    cfg, f32 = train_configs("deepseek-v2-236b", f32_layers=1)
+    cfg = dataclasses.replace(cfg, n_layers=1)
+    totals, _, _ = chip_smoke.train_cell(cfg, 1, 64, f32, device="cpu",
+                                         f32_hold="grads", full_layers=60)
+    assert totals == {"flash_attention": 0, "flash_attention_bwd": 0,
+                      "decode_attention": 0, "moe_routing": 6,
+                      "moe_routing_bwd": 3, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert out.count("train_step ") == 3 and "1 of 60 layers" in out
+    assert "train_f32_grads " in out and "train_f32_step " not in out

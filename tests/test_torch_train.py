@@ -40,7 +40,7 @@ from repro_torch.training.train_step import (init_train_state,
                                              loss_and_grads, make_train_step)
 
 TRAINED = ["qwen3-4b", "gemma-2b", "h2o-danube-1.8b", "qwen3-32b",
-           "seamless-m4t-medium"]
+           "seamless-m4t-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"]
 REL = 1e-5
 
 
@@ -95,13 +95,16 @@ def tbatch(batch):
 
 # (arch, remat, S): every trained family with remat off and on at S = 32
 # (the JAX attention naive, the loss in one piece), and at S = 1,024 (the
-# JAX chunked flash attention, chunked_ce_loss's chunked branch)
+# JAX chunked flash attention, MLA's on the chunked path, chunked_ce_loss's
+# chunked branch)
 LOSS_CASES = ([(arch, remat, 32) for arch in TRAINED
                for remat in (False, True)]
               + [("qwen3-4b", True, 1024), ("gemma-2b", False, 1024),
                  ("h2o-danube-1.8b", True, 1024),
                  ("qwen3-32b", False, 1024),
-                 ("seamless-m4t-medium", True, 1024)])
+                 ("seamless-m4t-medium", True, 1024),
+                 ("phi3.5-moe-42b-a6.6b", True, 1024),
+                 ("deepseek-v2-236b", False, 1024)])
 
 
 @pytest.mark.parametrize("arch,remat,S", LOSS_CASES)
@@ -205,7 +208,10 @@ def test_adamw_keeps_bf16_params_and_slices_give_the_same_bits(monkeypatch):
 
     whole = run()
     monkeypatch.setattr(optimizer, "CHUNK", 7)
-    assert len(optimizer._slices(p0["stack"])) == 3
+    # a row of the [3, 5, 7] stack holds 35 > 7 elements: each row is cut
+    # along its own first dimension, 5 slices of 7 a row
+    assert [s.numel() for s in optimizer._slices(p0["stack"])] == [7] * 15
+    assert [s.numel() for s in optimizer._slices(p0["vec"])] == [7, 2]
     sliced = run()
     for a, b in zip(tree_leaves(whole[0]), tree_leaves(sliced[0])):
         torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -8,
@@ -232,9 +238,12 @@ def test_adamw_keeps_bf16_params_and_slices_give_the_same_bits(monkeypatch):
 # the train step
 
 
-@pytest.mark.parametrize("accum_steps", [1, 2])
-def test_train_step_matches_jax_over_three_steps(accum_steps):
-    jcfg, jm, tcfg, tm = both("h2o-danube-1.8b")
+@pytest.mark.parametrize("arch,accum_steps", [
+    ("h2o-danube-1.8b", 1), ("h2o-danube-1.8b", 2),
+    ("phi3.5-moe-42b-a6.6b", 1), ("deepseek-v2-236b", 2)],
+    ids=["1", "2", "moe-1", "mla-2"])
+def test_train_step_matches_jax_over_three_steps(arch, accum_steps):
+    jcfg, jm, tcfg, tm = both(arch)
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=20)
     jstate = jax_init_state(jm, jax.random.PRNGKey(0))
     state = train_state_from_jax(jax.tree.map(np.asarray, jstate), tcfg,
@@ -415,11 +424,12 @@ def test_the_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 def test_the_launcher_trains_the_encoder_decoder_and_refuses_the_rest():
-    out = launcher.main(["--arch", "seamless-m4t-medium", "--device", "cpu",
-                         "--steps", "2", "--batch", "2", "--seq", "8"])
-    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    for arch in ("seamless-m4t-medium", "phi3.5-moe-42b-a6.6b"):
+        out = launcher.main(["--arch", arch, "--device", "cpu", "--steps",
+                             "2", "--batch", "2", "--seq", "8"])
+        assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
     for arch, slice_name in (("rwkv6-1.6b", "RWKV training slice"),
-                             ("phi3.5-moe-42b-a6.6b", "MoE/MLA training"),
+                             ("hymba-1.5b", "hymba training slice"),
                              ("llama-3.2-vision-11b", "VLM training slice")):
         with pytest.raises(NotImplementedError, match=slice_name):
             launcher.main(["--arch", arch, "--device", "cpu", "--steps",
