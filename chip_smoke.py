@@ -63,8 +63,9 @@ Phases, in order; any failure exits non-zero:
        against ``flash_attention_bwd_plain`` at qwen3-4b's training shape
        [2, 4096, 32, 8, 128] causal, the serving shape, seamless-m4t's
        [4, 1024, 16, 16, 64] non-causal, the ragged hd-80 shape windowed at
-       256, gemma-like MQA at hd 256 and hymba's G = 5 windowed at 1,024,
-       in f32 (TF32 off) and bf16: dq, dk and dv within ``BWD_REL`` of
+       256, gemma-like MQA at hd 256, hymba's G = 5 windowed at 1,024 and
+       its training shapes [2, 4096, 25, 5, 64] windowed at 1,024 and
+       global, in f32 (TF32 off) and bf16: dq, dk and dv within ``BWD_REL`` of
        each one's max |plain|, two calls bit-identical, the profiler's
        kernels of a call exactly its three (in bf16 the D pre-pass and the
        tensor-core ``_mma`` dK/dV and dQ kernels, in f32 the FMA ones, by
@@ -214,6 +215,23 @@ Phases, in order; any failure exits non-zero:
    takes the XLA-path attention); holds (i) and, in place of (ii), whose
    f32 optimizer state would not fit, the f32 loss and every grad on the
    kernels against the plain versions on that layer;
+5e. training the hybrid family: hymba-1.5b at full width and depth (32
+   layers, 3 global and 29 windowed at 1,024, the Mamba recurrence under
+   ``chunked_time_scan``), batch 2 x 4,096 (``train_4k``'s length, so the
+   window binds), 3 steps; each step 64 flash forwards and 32 backward
+   calls, no other kernel; holds (i), (ii) on its first 4 layers (global
+   layer 0 and three windowed); the fourth step profiled on the first 4
+   layers (a full-depth step is ~10^6 launches, too many to trace), with
+   the Mamba recurrence's (``addcmul``) share of its device time;
+5f. training the VLM family: llama-3.2-vision-11b at full width with 20 of
+   its 40 layers (16 self-attention, 4 gated cross-attention layers; the
+   deepest multiple of 5 whose reckoned train state, 12 bytes a
+   parameter, leaves 15 GB of the 80 for activations), every cross
+   layer's gates set to 0.5, ``vision_embeds`` [2, 1,601, 4,096] from the
+   launcher's stub, batch 2 x 4,096, 3 steps; each step 2 flash forwards
+   and 1 backward call a self layer, none for the cross layers (their
+   shapes take the XLA-path attention); holds (i) and (ii) on its first 5
+   layers (one cross layer);
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -282,14 +300,17 @@ DECODE_REPEATS = 3        # calls that must agree bit for bit
 # shape (the JAX package's train_4k length, batch cut to 2), the serving
 # shape, seamless-m4t's encoder and cross shape (non-causal) and its
 # decoder's self-attention (causal), a ragged hd-80 shape windowed at 256,
-# gemma-like MQA at hd 256, hymba's G = 5 windowed
+# gemma-like MQA at hd 256, hymba's G = 5 windowed, and hymba's training
+# shapes (2 x 4,096), windowed and global
 FLASH_BWD_HOLDS = ((2, 4096, 32, 8, 128, None, True),
                    (4, 1024, 32, 8, 128, None, True),
                    (4, 1024, 16, 16, 64, None, False),
                    (4, 1024, 16, 16, 64, None, True),
                    (4, 1000, 32, 8, 80, 256, True),
                    (2, 2048, 8, 1, 256, None, True),
-                   (4, 1024, 25, 5, 64, 1024, True))
+                   (4, 1024, 25, 5, 64, 1024, True),
+                   (2, 4096, 25, 5, 64, 1024, True),
+                   (2, 4096, 25, 5, 64, None, True))
 # dq, dk, dv of the backward kernel against its plain version, per tensor:
 # max |delta| <= BWD_REL * max |plain|.  f32: the same f32 math summed in
 # another order (the serving logit bound, 1e-4); bf16: both round their f32
@@ -388,6 +409,19 @@ ROUTING_BWD_HOLDS = ((8192, 4096, 16, 2, "random"),
 # optimizer step: an f32 step's state is 4 x 20 GB) held on that layer
 MOE_TRAIN_LAYERS, MOE_TRAIN_F32_LAYERS = 4, 1
 MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 1, 1, 2048
+# the hybrid training cell: hymba-1.5b at full width and depth (1.66 B
+# parameters, ~20 GB of train state), 5a's batch, its f32 step held on its
+# first 4 layers (global layer 0, windowed 1-3), its profiled step on the
+# first 4 layers too: a full-depth step is ~10^6 launches (the Mamba
+# recurrence's addcmul_ a step and chunk, forward, recomputed twice and
+# backward), too many events for the profiler in a phase's time
+HYMBA_TRAIN_F32_LAYERS = HYMBA_TRAIN_PROFILE_LAYERS = 4
+# the VLM training cell: llama-3.2-vision at full width, cut to the
+# deepest multiple of 5 layers whose train state at 12 bytes a parameter
+# leaves VLM_TRAIN_ROOM_GB of the card's 80 GB for activations
+# (``vlm_train_cut``: 20 layers, 64.96 GB), 5a's batch, gates at VLM_GATE,
+# its f32 step held on its first 5 layers (cross layer 3 among them)
+VLM_TRAIN_F32_LAYERS, VLM_TRAIN_ROOM_GB, CARD_GB = 5, 15.0, 80.0
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -2921,7 +2955,8 @@ def device_split(prof):
     from torch.autograd import DeviceType
     split = {"flash_forward": 0.0, "flash_backward": 0.0,
              "router_forward": 0.0, "router_backward": 0.0, "gemm": 0.0,
-             "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
+             "mamba_recurrence": 0.0, "elementwise": 0.0, "reduce": 0.0,
+             "other": 0.0}
     n = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -2939,6 +2974,8 @@ def device_split(prof):
         elif any(k in name for k in ("gemm", "cutlass", "xmma", "cublas",
                                      "sm90_", "nvjet")):
             split["gemm"] += ms
+        elif "addcmul" in name:     # MambaRecurrence, a step a launch
+            split["mamba_recurrence"] += ms
         elif "elementwise" in name or "vectorized" in name:
             split["elementwise"] += ms
         elif "reduce" in name or "softmax" in name or "logsumexp" in name:
@@ -2951,9 +2988,10 @@ def device_split(prof):
 def profiled_step(model, state, batch, opt_cfg):
     """One training step in two profiled windows, the loss and its
     gradient, then the optimizer, each synchronised: host seconds, device
-    ms by kind, the optimizer's device ms, kernels, idle share; and the
-    loss chunks alone (``chunked_ce_loss``, forward and backward, on the
-    stack's output), whose kernels are also among the first window's."""
+    ms by kind, the optimizer's device ms, kernels, idle share, the Mamba
+    recurrence's share of the device time; and the loss chunks alone
+    (``chunked_ce_loss``, forward and backward, on the stack's output),
+    whose kernels are also among the first window's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import common, decoder
@@ -2982,7 +3020,7 @@ def profiled_step(model, state, batch, opt_cfg):
     with torch.no_grad():
         ctx = (decoder.encoder_stack(params["encoder"], cfg,
                                      batch["audio_embeds"])
-               if cfg.encdec else None)
+               if cfg.encdec else batch.get("vision_embeds"))
         x = common.embed(params["embed"], cfg, batch["tokens"])
         x, _ = decoder.decoder_stack(params, cfg, x, mode="train", ctx=ctx)
     x = x.detach().requires_grad_()
@@ -2994,14 +3032,16 @@ def profiled_step(model, state, batch, opt_cfg):
     loss_ms = sum(device_split(prof_loss)[0].values())
     device = sum(split.values()) + optimizer_ms
     host_ms = (t2 - t0) * 1e3
-    line = {"arch": cfg.name, "loss": float(loss),
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "loss": float(loss),
             "host_ms": host_ms, "grad_host_ms": (t1 - t0) * 1e3,
             "optimizer_host_ms": (t2 - t1) * 1e3,
             "device_ms": device if n_grad else None,
             "device_ms_by_kind": split, "optimizer_device_ms": optimizer_ms,
             "loss_chunks_device_ms_alone": loss_ms,
             "kernels": n_grad + n_opt,
-            "idle_share": 1.0 - device / host_ms if n_grad else None}
+            "idle_share": 1.0 - device / host_ms if n_grad else None,
+            "mamba_recurrence_share": (split["mamba_recurrence"] / device
+                                       if n_grad else None)}
     print("train_profile " + json.dumps(line), flush=True)
     return line
 
@@ -3027,7 +3067,9 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
     when u moves by the grad hold's own bound, tau = clip * 1e-4 * max |g|
     of its leaf: at most eps tau / (max(|u| - tau, 0) + eps)^2, and 2 (a
     flipped sign).  Elements over the first part and within the second are
-    printed as excused."""
+    printed as excused.  The kernels' run (params, grads, m and v) waits on
+    the host while the plain run's are taken, so the card holds one f32
+    train state at a time beside ``params``."""
     import torch
     from repro_torch._tree import tree_leaves_with_paths, tree_map
     from repro_torch.training.optimizer import adamw_update, init_opt_state
@@ -3050,11 +3092,15 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
             raise SystemExit(f"FAIL f32 step {model.cfg.name}: the {which} "
                              f"run launched {moved}")
         _, opt, metrics = adamw_update(opt_cfg, p, grads, state["opt"])
-        runs[which] = {"loss": float(loss), "grads": grads, "params": p,
-                       "opt": opt, "lr": float(metrics["lr"]),
-                       "clip": min(1.0, opt_cfg.grad_clip
-                                   / max(float(metrics["grad_norm"]), 1e-9))}
-        del state
+        run = {"grads": grads, "params": p, "opt": opt}
+        if which == "kernels":
+            run = tree_map(lambda t: t.cpu(), run)
+        runs[which] = dict(run, loss=float(loss), lr=float(metrics["lr"]),
+                           clip=min(1.0, opt_cfg.grad_clip
+                                    / max(float(metrics["grad_norm"]),
+                                          1e-9)))
+        del state, p, grads, opt, run
+        torch.cuda.empty_cache()
     k, q = runs["kernels"], runs["plain"]
     lr = q["lr"]
     worst = {"loss": abs(k["loss"] - q["loss"]) / abs(q["loss"]),
@@ -3064,7 +3110,7 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
                          ("v", k["opt"]["v"], q["opt"]["v"])):
         for (key, a), (_, b) in zip(tree_leaves_with_paths(tk),
                                     tree_leaves_with_paths(tq)):
-            worst[name] = max(worst[name], rel_to_max(a, b))
+            worst[name] = max(worst[name], rel_to_max(a.to(b.device), b))
     ulp, eps, clip = torch.finfo(torch.float32).eps, opt_cfg.eps, q["clip"]
     over = excused = elements = 0
     worst_param = 0.0
@@ -3072,7 +3118,7 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
             tree_leaves_with_paths(k["params"]),
             tree_leaves_with_paths(q["params"]),
             tree_leaves_with_paths(q["grads"])):
-        d = (a.double() - b.double()).abs()
+        d = (a.to(b.device).double() - b.double()).abs()
         base = lr * 1e-3 + 2 * ulp * b.double().abs()
         u = clip * g.double().abs()
         tau = TRAIN_F32_REL["grad"] * float(u.max())
@@ -3184,22 +3230,25 @@ def resume_check(arch, device=None):
 
 
 def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
-               f32_hold="step", full_layers=None):
-    """Phases 5a-5d on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
+               f32_hold="step", full_layers=None, profile_layers=None):
+    """Phases 5a-5f on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
     (the launcher's schedule rule) through ``make_train_step`` on batches
     of the launcher's ``DataLoader`` copy, each step's launches counted
-    from 0 and held: on F flash layers (all but MLA's) 2 F flash forwards
-    (remat recomputes each layer's) and F backward calls, counted by mask
-    as well; on M MoE layers 2 M router forwards and M router backward
-    calls; no decode or WKV launch; step seconds, tokens/s, peak memory
-    beside the reckoned train state (12 bytes a bf16 parameter: param,
-    grad, f32 m and v); one more profiled step.  Holds (i) step 0's loss
-    against the plain versions' (forward, no grad), (ii) on ``f32_cfg``
-    (its params drawn from seed 0 after the bf16 state is freed)
-    ``held_f32_step``, or with ``f32_hold="grads"`` ``held_f32_grads``,
-    and with ``resume`` (iii) ``resume_check``.  ``full_layers``: the
-    architecture's depth where ``cfg``'s is cut.  Returns (the launches of
-    the counted steps, the profile, the peak memory in GB)."""
+    from 0 and held: on F flash layers (all but MLA's and the VLM's cross
+    layers) 2 F flash forwards (remat recomputes each layer's) and F
+    backward calls, counted by mask as well; on M MoE layers 2 M router
+    forwards and M router backward calls; no decode or WKV launch; step
+    seconds, tokens/s, peak memory beside the reckoned train state (12
+    bytes a bf16 parameter: param, grad, f32 m and v); one more profiled
+    step, on the first ``profile_layers`` layers where given.  A VLM's
+    cross gates are set to ``VLM_GATE`` (at the init's 0 every cross weight
+    but the gates gets a zero grad).  Holds (i) step 0's loss against the
+    plain versions' (forward, no grad), (ii) on ``f32_cfg`` (its params
+    drawn from seed 0 after the bf16 state is freed) ``held_f32_step``, or
+    with ``f32_hold="grads"`` ``held_f32_grads``, and with ``resume`` (iii)
+    ``resume_check``.  ``full_layers``: the architecture's depth where
+    ``cfg``'s is cut.  Returns (the launches of the counted steps, the
+    profile, the peak memory in GB)."""
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.models.decoder import build_layout
@@ -3215,24 +3264,29 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
     t0 = time.perf_counter()
     state = init_train_state(model, torch.Generator(device=model.device)
                              .manual_seed(0), opt_cfg)
+    gated = set_gates(state["params"], cfg, VLM_GATE) if cfg.vision else 0
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     reckoned = 12 * n_params / 1e9
     E = cfg.encdec.n_enc_layers if cfg.encdec else 0
     L = cfg.n_layers
     layout = build_layout(cfg)
-    flash_layers = sum(g.n for g in layout if not g.spec.mla)
+    flash_layers = sum(g.n for g in layout
+                       if not g.spec.mla and g.spec.kind != "cross")
     moe_layers = sum(g.n for g in layout if g.spec.kind == "moe")
     cross_layers = L if cfg.encdec else 0
     depth = f"{L} of {full_layers}" if full_layers else f"{L}"
     moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}" if cfg.moe
            else "")
+    gates = (f", {gated} gated cross layers (gates {VLM_GATE})" if gated
+             else "")
     print(f"train params: {cfg.name} {cfg.dtype}, "
           f"{f'{E} encoder + ' if E else ''}{depth} layers x d_model "
-          f"{cfg.d_model}{moe}, {n_params / 1e9:.3f} B parameters, remat "
-          f"{cfg.remat}, state {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-          f" GB (reckoned train state {reckoned:.1f} GB) in "
-          f"{time.perf_counter() - t0:.1f} s; batch {B} x {S}", flush=True)
+          f"{cfg.d_model}{moe}{gates}, {n_params / 1e9:.3f} B parameters, "
+          f"remat {cfg.remat}, state "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (reckoned train "
+          f"state {reckoned:.1f} GB) in {time.perf_counter() - t0:.1f} s; "
+          f"batch {B} x {S}", flush=True)
     batches = train_batches(cfg, B, S, TRAIN_STEPS + 1, model.device)
     # (i) step 0's loss with the plain versions, forward only
     with torch.no_grad(), patched(train_plains()):
@@ -3290,17 +3344,32 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
                 raise SystemExit(f"FAIL train {cfg.name}: step 0's loss "
                                  f"{loss} against {plain_loss}")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    profile = profiled_step(model, state, batches[TRAIN_STEPS], opt_cfg)
+    if profile_layers:      # the profile on the first layers, cut apart
+        pcfg = dataclasses.replace(cfg, n_layers=profile_layers)
+        opt = state["opt"]
+        state = {"params": first_layers(state["params"], cfg, profile_layers),
+                 "opt": {"m": first_layers(opt["m"], cfg, profile_layers),
+                         "v": first_layers(opt["v"], cfg, profile_layers),
+                         "step": opt["step"]}}
+        del opt
+        torch.cuda.empty_cache()
+        profile = profiled_step(build_model(pcfg, device=model.device), state,
+                                batches[TRAIN_STEPS], opt_cfg)
+    else:
+        profile = profiled_step(model, state, batches[TRAIN_STEPS], opt_cfg)
     print("training " + json.dumps({
         "arch": cfg.name, "dtype": cfg.dtype, "layers": L,
         "steps": TRAIN_STEPS, "batch": B, "seq": S, "launches": totals,
-        "peak_memory_gb": peak, "reckoned_state_gb": reckoned}), flush=True)
+        "peak_memory_gb": peak, "reckoned_state_gb": reckoned,
+        "profiled_layers": profile["layers"]}), flush=True)
     del state, batches
     torch.cuda.empty_cache()
     # (ii) one f32 step, kernels against plain versions
     model32 = build_model(f32_cfg, device=model.device)
     params32 = model32.init_params(torch.Generator(device=model.device)
                                    .manual_seed(0))
+    if f32_cfg.vision:
+        set_gates(params32, f32_cfg, VLM_GATE)
     batch32 = train_batches(f32_cfg, B, S, 1, model.device)[0]
     if f32_hold == "grads":
         held_f32_grads(model32, params32, batch32, wrappers)
@@ -3311,6 +3380,32 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
     if resume:
         resume_check(cfg.name, device=device)
     return totals, profile, peak
+
+
+def vlm_train_cut(cfg):
+    """The VLM training cell's depth: the deepest multiple of 5 layers
+    whose train state, 12 bytes a parameter (bf16 param and grad, f32 m
+    and v), leaves ``VLM_TRAIN_ROOM_GB`` of ``CARD_GB`` for activations.
+    Parameters reckoned from ``cfg``'s shapes: the embedding and the head,
+    and a layer's attention (q, k, v, o), gated MLP and two norms, a cross
+    layer's two gates besides.  Prints the reckoning at every depth."""
+    from repro_torch.models.decoder import build_layout
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = (2 * D * H * hd + 2 * D * K * hd + 3 * D * cfg.d_ff + 2 * D
+             + (2 * hd if cfg.qk_norm else 0))
+    state_gb = {}
+    for n in range(5, cfg.n_layers + 1, 5):
+        cross = sum(g.n for g in build_layout(dataclasses.replace(
+            cfg, n_layers=n)) if g.spec.kind == "cross")
+        params = 2 * cfg.vocab * D + D + n * layer + 2 * cross
+        state_gb[n] = 12 * params / 1e9
+    depth = max(n for n, gb in state_gb.items()
+                if gb <= CARD_GB - VLM_TRAIN_ROOM_GB)
+    print("vlm_train_cut " + json.dumps(
+        {"arch": cfg.name, "reckoned_state_gb_by_layers": state_gb,
+         "card_gb": CARD_GB, "room_gb": VLM_TRAIN_ROOM_GB,
+         "layers": depth}), flush=True)
+    return depth
 
 
 def phase_done(name, t0):
@@ -3672,6 +3767,25 @@ def main() -> int:
         full_layers=get_config(MLA_ARCH).n_layers)
     t_phase = phase_done(f"5d (train {MLA_ARCH})", t_phase)
 
+    # 5e-5f. training the hybrid and VLM families at full width: hymba-1.5b
+    # at full depth (its f32 step and its profile on 4 layers),
+    # llama-3.2-vision cut to 20 of its 40 layers (its f32 step on 5)
+    hycfg = get_config(HYMBA_ARCH)
+    hymba_train_launches, hymba_train_profile, hymba_train_peak = train_cell(
+        hycfg, TRAIN_BATCH, TRAIN_SEQ,
+        dataclasses.replace(hycfg, n_layers=HYMBA_TRAIN_F32_LAYERS,
+                            dtype="float32"),
+        profile_layers=HYMBA_TRAIN_PROFILE_LAYERS)
+    t_phase = phase_done(f"5e (train {HYMBA_ARCH})", t_phase)
+    vtcfg = dataclasses.replace(get_config(VLM_ARCH),
+                                n_layers=vlm_train_cut(get_config(VLM_ARCH)))
+    vlm_train_launches, vlm_train_profile, vlm_train_peak = train_cell(
+        vtcfg, TRAIN_BATCH, TRAIN_SEQ,
+        dataclasses.replace(vtcfg, n_layers=VLM_TRAIN_F32_LAYERS,
+                            dtype="float32"),
+        full_layers=get_config(VLM_ARCH).n_layers)
+    t_phase = phase_done(f"5f (train {VLM_ARCH})", t_phase)
+
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
     print("launch floor: " + json.dumps(
@@ -3765,7 +3879,9 @@ def main() -> int:
         if kname == "flash_attention":   # the training steps' forwards
             paths.update({f"train {TRAIN_ARCH}": train_launches[kname],
                           f"train {ENCDEC_ARCH}": etrain_launches[kname],
-                          f"train {MOE_ARCH}": moe_train_launches[kname]})
+                          f"train {MOE_ARCH}": moe_train_launches[kname],
+                          f"train {HYMBA_ARCH}": hymba_train_launches[kname],
+                          f"train {VLM_ARCH}": vlm_train_launches[kname]})
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
@@ -3777,13 +3893,16 @@ def main() -> int:
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "shape": shape, "dtype": "bfloat16"})
     # the flash backward at qwen3-4b's training shape in bf16, from 2h; its
-    # launches over the two training paths' counted steps
+    # launches over the training paths' counted steps
     shape = (TRAIN_BATCH, TRAIN_SEQ, tcfg.n_heads, tcfg.n_kv_heads,
              tcfg.head_dim, None, True)
     r = bwd_holds[shape + ("bfloat16",)]
     paths = {f"train {TRAIN_ARCH}": train_launches["flash_attention_bwd"],
              f"train {ENCDEC_ARCH}": etrain_launches["flash_attention_bwd"],
-             f"train {MOE_ARCH}": moe_train_launches["flash_attention_bwd"]}
+             f"train {MOE_ARCH}": moe_train_launches["flash_attention_bwd"],
+             f"train {HYMBA_ARCH}":
+             hymba_train_launches["flash_attention_bwd"],
+             f"train {VLM_ARCH}": vlm_train_launches["flash_attention_bwd"]}
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -3899,12 +4018,15 @@ def main() -> int:
     for line, peak in ((train_profile, train_peak),
                        (etrain_profile, etrain_peak),
                        (moe_train_profile, moe_train_peak),
-                       (mla_train_profile, mla_train_peak)):
+                       (mla_train_profile, mla_train_peak),
+                       (hymba_train_profile, hymba_train_peak),
+                       (vlm_train_profile, vlm_train_peak)):
         print(f"train step {line['arch']}: " + json.dumps(
-            {**{k: line[k] for k in ("host_ms", "device_ms", "idle_share",
-                                     "device_ms_by_kind",
+            {**{k: line[k] for k in ("layers", "host_ms", "device_ms",
+                                     "idle_share", "device_ms_by_kind",
                                      "optimizer_device_ms",
-                                     "loss_chunks_device_ms_alone")},
+                                     "loss_chunks_device_ms_alone",
+                                     "mamba_recurrence_share", "kernels")},
              "peak_memory_gb": peak}))
     phase_done("7 (launch floor, kernels at the paths' shapes)", t_phase)
     print(json.dumps({"kernels": rows}))

@@ -10,11 +10,10 @@ checkpoint/restart, as the JAX launcher does on the CPU:
 
 It runs on the card (attention on the flash kernel and its backward, the
 MoE router on its kernel and its backward) unless ``--device cpu`` asks for
-the CPU (their plain versions).  The dense, MoE (phi3.5-moe, and
-deepseek-v2 with MLA) and encoder-decoder families train; the others
-(RWKV, hymba, the VLM) raise ``NotImplementedError`` naming the training
-slice they wait for.  Params come from
-``torch.Generator(...).manual_seed(0)``; the batches from the
+the CPU (their plain versions).  Every family trains (dense, MoE with MLA
+too, hymba, the VLM, encoder-decoder) but RWKV, which raises
+``NotImplementedError`` naming the training slice it waits for.  Params
+come from ``torch.Generator(...).manual_seed(0)``; the batches from the
 ``DataLoader`` copy, seeded with the step it starts from, and the
 encoder-decoder's ``audio_embeds`` (the VLM's ``vision_embeds``) from the
 JAX launcher's numpy stubs, cast to the model's dtype.  Every 10 steps it

@@ -15,9 +15,12 @@ length.
 
 Where torch and JAX differ the port follows JAX: ``gelu`` is the tanh
 approximation, norms run in f32 and cast back, RoPE promotes to f32 and casts
-back.  ``chunked_time_scan`` is a JAX remat device for training and waits for
-the training slice; the RWKV layers call the ``rwkv_scan`` kernel in its
-place, the Mamba branch ``layers.selective_scan``.
+back.  ``chunked_time_scan`` is the JAX package's two-level time scan for
+training a recurrence (the Mamba branch's in ``mode="train"``): a loop of
+steps in place of ``lax.scan``, each chunk of 64 steps under
+``torch.utils.checkpoint`` in place of ``jax.checkpoint``.  Serving does not
+use it: the RWKV layers call the ``rwkv_scan`` kernel, the Mamba branch's
+prefill and decode ``layers.selective_scan``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention, fits_kernels
@@ -269,3 +274,50 @@ def unembed(params, cfg: ModelConfig, x):
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+# ----------------------------------------------------------------------------
+# time scans (recurrences in training)
+
+
+def time_scan(step, carry, xs):
+    """``lax.scan(step, carry, xs)``: ``step(carry, x_t) -> (carry, y_t)``
+    over the leading axis of ``xs``'s leaves; returns (the final carry, the
+    y_t stacked to [T, ...]).  A step that carries a ``block`` attribute
+    runs the whole of ``xs`` through ``step.block(carry, xs)`` instead,
+    which must return what the loop would (the Mamba step forms its
+    elementwise terms for every t at once and loops only the recurrence)."""
+    block = getattr(step, "block", None)
+    if block is not None:
+        return block(carry, xs)
+    ys = []
+    for t in range(tree_leaves(xs)[0].shape[0]):
+        carry, y = step(carry, tree_map(lambda a: a[t], xs))
+        ys.append(y)
+    return carry, tree_map(lambda *a: torch.stack(a), *ys)
+
+
+def chunked_time_scan(step, init, xs, length: int, chunk: int = 64):
+    """Two-level time scan for recurrences (RWKV/Mamba training), the JAX
+    package's.
+
+    A flat scan over S steps keeps its carry (the recurrent state) at
+    every step for the backward pass: O(S * state) memory.  Chunking keeps
+    the carry only at chunk boundaries (O(S / chunk * state)): each chunk
+    runs under ``checkpoint`` (non-reentrant), which saves the chunk's
+    input carry and recomputes the chunk in the backward, so its per-step
+    residuals live only during that chunk's backward, as under
+    ``jax.checkpoint(inner, policy=nothing_saveable)``.
+
+    ``xs``: pytree of [S, ...] tensors scanned over the leading axis.
+    Returns (final_carry, ys stacked to [S, ...]).  Scans flat when
+    ``length % chunk != 0 or length <= chunk``."""
+    if length % chunk != 0 or length <= chunk:
+        return time_scan(step, init, xs)
+    carry, ys = init, []
+    for i in range(length // chunk):
+        xc = tree_map(lambda a: a[i * chunk:(i + 1) * chunk], xs)
+        carry, y = checkpoint(time_scan, step, carry, xc,
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, tree_map(lambda *a: torch.cat(a), *ys)

@@ -17,13 +17,11 @@ VLM's gated cross-attention layers over a context input), ``"hymba"``
 ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set, the
 counterpart of the JAX stack's ``jax.checkpoint(..., nothing_saveable)``:
 the backward recomputes a layer's activations from its input (the router
-kernel's forward among them, whose picks come out the same).  The
-``dense``, ``moe`` (with and without MLA), ``cross`` and ``encdec_dec``
-kinds train; a family with another kind, and the VLM, raise
-``NotImplementedError`` naming the later training slice they wait for
-(``training_waits_for``).  The JAX stack's
-``constrain_seq`` is a no-op off a device mesh and waits for the sharding
-slice.
+kernel's forward among them, whose picks come out the same).  Every kind
+trains but ``"rwkv"``: a family with RWKV layers raises
+``NotImplementedError`` naming the later training slice it waits for
+(``training_waits_for``).  The JAX stack's ``constrain_seq`` is a no-op off
+a device mesh and waits for the sharding slice.
 """
 
 from __future__ import annotations
@@ -158,18 +156,12 @@ def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
     return layers.init_attn_cache(cfg, batch, buf, dtype, device, lead)
 
 
-# the layer kinds that do not train yet, and the slice each waits for
-_KIND_TRAINING = {"rwkv": layers.RWKV_TRAINING,
-                  "hymba": layers.HYMBA_TRAINING}
-
-
 def training_waits_for(cfg: ModelConfig) -> Optional[str]:
-    """The later training slice that ``cfg``'s family waits for, or None
-    where the port trains it (dense, MoE, MLA, encoder-decoder)."""
-    if cfg.family == "vlm":
-        return layers.VLM_TRAINING
-    return next((_KIND_TRAINING[g.spec.kind] for g in build_layout(cfg)
-                 if g.spec.kind in _KIND_TRAINING), None)
+    """The later training slice that ``cfg``'s family waits for (RWKV's),
+    or None where the port trains it (every other family)."""
+    if any(g.spec.kind == "rwkv" for g in build_layout(cfg)):
+        return layers.RWKV_TRAINING
+    return None
 
 
 def refuse_training(cfg: ModelConfig) -> None:

@@ -23,11 +23,12 @@ with its conv and state cache.
 
 ``mode``: "train" | "prefill" | "decode".  "train" runs the full sequence
 with no cache, as prefill does, and returns None for the cache: the GQA,
-cross-attention and MLA sublayers and the MoE FFN train (the flash and
-router kernels have backwards; MLA's attention is the XLA-path ports, which
-autograd differentiates); the RWKV mixes and the Mamba branch raise
-``NotImplementedError`` naming the later training slice each waits for
-(``RWKV_TRAINING``, ``HYMBA_TRAINING``);
+cross-attention and MLA sublayers, the MoE FFN and the Mamba branch train
+(the flash and router kernels have backwards; MLA's attention is the
+XLA-path ports, which autograd differentiates; the Mamba recurrence runs
+under ``common.chunked_time_scan``); the RWKV mixes raise
+``NotImplementedError`` naming the later training slice they wait for
+(``RWKV_TRAINING``);
 ``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), the cross cache
 {"ck", "cv"} [B, S_ctx, K, hd], the MLA latent cache {"ckv" [B, buf, R],
 "krope" [B, buf, rope]}, or the RWKV cache {"state" [B, H, hd, hd] f32,
@@ -51,7 +52,8 @@ do not fit the attention kernels), and so does cross-attention except in a
 prefill whose context is as long as the query (the encoder-decoder's, where
 ``common.attention`` routes it to the flash kernel, non-causal).  The Mamba
 recurrence is ``lax.scan`` in the JAX package, not a Pallas kernel, so the
-port runs it in PyTorch on tensors (``selective_scan``).  The JAX
+port runs it in PyTorch on tensors: ``selective_scan`` in prefill and
+decode, ``common.chunked_time_scan`` of ``mamba_step`` in training.  The JAX
 package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN`` switches and
 the MoE sharding constraints (``constrain_moe_groups``,
 ``constrain_moe_expert``, the identity off a device mesh) wait for the
@@ -71,13 +73,8 @@ from repro_torch.models.common import (apply_rope, attention, dense_init,
                                        head_rms_norm, rms_norm, rope_freqs)
 
 
-# the later training slices the layers that do not train yet wait for
-RWKV_TRAINING = ("the RWKV training slice (a WKV-scan backward and "
-                 "chunked_time_scan)")
-HYMBA_TRAINING = ("the hymba training slice (the Mamba recurrence under "
-                  "chunked_time_scan)")
-VLM_TRAINING = ("the VLM training slice (a depth cut or sharding: 9.8 B "
-                "parameters' train state does not fit one card)")
+# the later training slice the layers that do not train yet wait for
+RWKV_TRAINING = "the RWKV training slice (a WKV-scan backward kernel)"
 
 
 def refuse_train(mode, what, waits_for):
@@ -563,6 +560,16 @@ def init_mamba_cache(cfg: ModelConfig, batch, dtype, device=None, lead=()):
     }
 
 
+def _recur_(dA, hs, h):
+    """h_t += dA_t h_{t-1} in place over the paired steps of ``dA`` and
+    ``hs`` (sequences of views, each h_t holding its step's dt B x on
+    entry), from ``h`` (None: zeros): one ``addcmul_`` a step."""
+    for dA_t, h_t in zip(dA, hs):
+        if h is not None:
+            h_t.addcmul_(dA_t, h)
+        h = h_t
+
+
 def selective_scan(dt, Bt, Ct, x, A, h0):
     """The Mamba recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t, y_t =
     h_t C_t, in f32.  dt, x: [B, S, di]; Bt, Ct: [B, S, N]; A: [di, N]; h0:
@@ -571,18 +578,73 @@ def selective_scan(dt, Bt, Ct, x, A, h0):
     exp(dt A) and dt B x are elementwise, so they are formed for every t at
     once (the same f32 values as the JAX step's); only the recurrence loops
     over t, each step one in-place ``addcmul_`` that turns the step's dt B x
-    into its state.  Two [B, S, di, N] tensors are alive at a time."""
+    into its state.  Two [B, S, di, N] tensors are alive at a time.  It
+    writes its states in place, which autograd cannot differentiate: the
+    training path is ``mamba_step``."""
     dA = (dt[..., None] * A).exp_()                    # [B, S, di, N]
     hs = dt[..., None] * Bt[:, :, None, :]
     hs.mul_(x[..., None])                              # dt B x, then h
-    h = h0
-    for dA_t, h_t in zip(dA.unbind(1), hs.unbind(1)):
-        if h is not None:
-            h_t.addcmul_(dA_t, h)
-        h = h_t
+    _recur_(dA.unbind(1), hs.unbind(1), h0)
     del dA
     y = torch.einsum("bscn,bsn->bsc", hs, Ct)
     return y, hs[:, -1].clone()
+
+
+class MambaRecurrence(torch.autograd.Function):
+    """Every state of h_t = dA_t h_{t-1} + dBx_t over the leading (time)
+    axis: dA, dBx [T, B, di, N], h0 [B, di, N] -> hs [T, B, di, N].
+
+    The forward is ``selective_scan``'s loop, one in-place ``addcmul_`` a
+    step.  The backward runs the cotangent's recurrence in reverse time,
+    g_t = dhs_t + dA_{t+1} g_{t+1}, one ``addcmul_`` a step, then forms
+    d dA_t = g_t h_{t-1}, d dBx_t = g_t and d h0 = dA_0 g_0 once for all
+    t: what autograd of the JAX step gives, without a graph node a step."""
+
+    @staticmethod
+    def forward(ctx, dA, dBx, h0):
+        hs = dBx.clone(memory_format=torch.contiguous_format)
+        _recur_(dA.unbind(0), hs.unbind(0), h0)
+        ctx.save_for_backward(dA, hs, h0)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        dA, hs, h0 = ctx.saved_tensors
+        g = dhs.clone(memory_format=torch.contiguous_format)
+        gs = g.unbind(0)        # g_t += dA_{t+1} g_{t+1}, t = T-2, ..., 0
+        _recur_(dA.unbind(0)[:0:-1], gs[-2::-1], gs[-1])
+        d_dA = torch.empty_like(g)
+        torch.mul(g[0], h0, out=d_dA[0])
+        torch.mul(g[1:], hs[:-1], out=d_dA[1:])
+        d_h0 = dA[0] * g[0] if ctx.needs_input_grad[2] else None
+        return d_dA, g, d_h0
+
+
+def mamba_step(A):
+    """The JAX branch's scan step for the state matrix ``A`` [di, N]:
+    ``step(h, (dt_t, B_t, C_t, x_t)) -> (h, y_t)``, all f32 ([B, di] and
+    [B, N] inputs, h [B, di, N]).  Its ``block`` runs the same recurrence
+    over [T, ...] inputs at once (``common.time_scan`` takes it): exp(dt A)
+    and dt B x formed for every t (the step's f32 values), the states by
+    ``MambaRecurrence``, y by one einsum."""
+    def step(h, inp):
+        dt_t, B_t, C_t, x_t = inp
+        dA = torch.exp(dt_t[..., None] * A)
+        dBx = dt_t[..., None] * B_t[:, None, :] * x_t[..., None]
+        h = dA * h + dBx
+        return h, torch.einsum("bcn,bn->bc", h, C_t)
+
+    def block(h, xs):
+        dt, Bt, Ct, x = xs
+        dA = torch.exp(dt[..., None] * A)
+        dBx = dt[..., None] * Bt[:, :, None, :] * x[..., None]
+        hs = MambaRecurrence.apply(dA, dBx, h)
+        # the carry is a copy: a view would keep every state of the block
+        # alive as long as the next chunk keeps its input carry
+        return hs[-1].clone(), torch.einsum("tbcn,tbn->tbc", hs, Ct)
+
+    step.block = block
+    return step
 
 
 def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
@@ -592,8 +654,10 @@ def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
     softplus and the projections run in the model's dtype; dt, B, C and the
     convolved x become f32 for the scan and the skip term; y returns to the
     model's dtype before the gate.  Decode writes the conv history and the
-    state into ``cache`` in place."""
-    refuse_train(mode, "the Mamba branch", HYMBA_TRAINING)
+    state into ``cache`` in place.  Train takes the prefill's convolution
+    and runs the recurrence from zeros as ``common.chunked_time_scan`` of
+    ``mamba_step`` over time-major inputs (the JAX branch's scan), and
+    returns None for the cache."""
     s = cfg.ssm
     B, S, D = x.shape
     di = s.d_inner_mult * D
@@ -607,7 +671,7 @@ def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
     if mode == "decode":
         hist = torch.cat([cache["conv"], xi], dim=1)   # [B, d_conv, di]
         conv_out = torch.einsum("bkc,kc->bc", hist, p["conv_w"])[:, None, :]
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         hist = torch.cat([xi.new_zeros((B, s.d_conv - 1, di)), xi], dim=1)
         conv_out = hist[:, 0:S] * p["conv_w"][0]
         for i in range(1, s.d_conv):
@@ -625,12 +689,21 @@ def mamba_branch(p, cfg: ModelConfig, x, *, mode, cache):
     A = -torch.exp(p["A_log"])                         # [di, N]
     xcf = xc.float()
 
-    y, h_end = selective_scan(dt, Bt, Ct, xcf, A,
-                              cache["ssm"] if mode == "decode" else None)
+    if mode == "train":
+        _, ys = common.chunked_time_scan(
+            mamba_step(A), xcf.new_zeros((B, di, N)),
+            tuple(t.transpose(0, 1).contiguous() for t in (dt, Bt, Ct, xcf)),
+            S)
+        y = ys.transpose(0, 1)                         # [B, S, di]
+    else:
+        y, h_end = selective_scan(dt, Bt, Ct, xcf, A,
+                                  cache["ssm"] if mode == "decode" else None)
     y = y + xcf * p["Dskip"].float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"]
 
+    if mode == "train":
+        return out, None
     if mode == "decode":
         new_cache = {"conv": cache["conv"].copy_(hist[:, 1:]),
                      "ssm": cache["ssm"].copy_(h_end)}

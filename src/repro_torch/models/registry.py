@@ -30,10 +30,10 @@ None).
 The model runs on the card unless ``device="cpu"`` is asked for.  Every
 family of the registry runs (dense, MoE with MLA too, RWKV, hybrid hymba,
 VLM, encoder-decoder).  ``train_loss`` (a batch of ``tokens`` and
-``labels`` [B, S], an encoder-decoder's with ``audio_embeds``) is the JAX
-package's: the decoder stack in train mode, then ``chunked_ce_loss``.  The
-dense, MoE (with MLA too) and encoder-decoder families train; the others
-raise ``NotImplementedError`` naming the training slice they wait for
+``labels`` [B, S], a VLM's with ``vision_embeds``, an encoder-decoder's
+with ``audio_embeds``) is the JAX package's: the decoder stack in train
+mode, then ``chunked_ce_loss``.  Every family trains but RWKV, which raises
+``NotImplementedError`` naming the training slice it waits for
 (``decoder.training_waits_for``).
 """
 

@@ -783,3 +783,54 @@ def test_dense_model_trains_on_the_card_like_the_cpu(no_tf32):
     for a, c in zip(tree_leaves(grads), tree_leaves(want)):
         assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(
             c.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "llama-3.2-vision-11b"])
+def test_hybrid_and_vlm_models_train_on_the_card_like_the_cpu(no_tf32, arch):
+    """The reduced hymba (its 32-wide window binding and the Mamba scan
+    chunked at S = 128) and the reduced VLM (cross gates at 0.5), remat on,
+    one f32 step on the card: flash 2 and its backward 1 a layer with self
+    attention (none on the VLM's cross layers); the loss within 1e-5 and
+    every grad and m within 1e-4 and v within 2e-4 (quadratic in the
+    grad) of its max |CPU| of the CPU run's, which runs the plain
+    versions."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.decoder import build_layout
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = reduced(get_config(arch), remat=True)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    if cfg.vision:
+        assert chip_smoke.set_gates(params, cfg, 0.5) > 0
+    gpu = build_model(cfg)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 129), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.vision:
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            (2, cfg.vision.n_vision_tokens, cfg.d_model), generator=g)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    runs = []
+    for model, p, b in ((gpu, _to(params, gpu.device), _to(batch, gpu.device)),
+                        (cpu, params, batch)):
+        loss, grads = loss_and_grads(model, p, b)
+        _, opt, _ = adamw_update(opt_cfg, p, grads, init_opt_state(p))
+        runs.append((float(loss), {
+            key: [t.cpu() for t in tree_leaves(tree)] for key, tree in
+            (("grad", grads), ("m", opt["m"]), ("v", opt["v"]))}))
+    flash = sum(g.n for g in build_layout(cfg) if g.spec.kind != "cross")
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
+        == (before[0] + 2 * flash, before[1] + flash)
+    (loss, got), (want_loss, want) = runs
+    assert abs(loss - want_loss) <= 1e-5 * want_loss
+    for key, bound in (("grad", 1e-4), ("m", 1e-4), ("v", 2e-4)):
+        for a, c in zip(got[key], want[key]):
+            assert float((a - c).abs().max()) <= bound * float(
+                c.abs().max()), key

@@ -252,14 +252,11 @@ def test_rwkv_decode_writes_its_cache_in_place():
 
 
 @pytest.mark.parametrize("arch,waits_for", [
-    ("hymba-1.5b", "the hymba training slice"),
-    ("rwkv6-1.6b", "the RWKV training slice"),
-    ("llama-3.2-vision-11b", "the VLM training slice")])
+    ("rwkv6-1.6b", "the RWKV training slice")])
 def test_families_of_later_slices_raise(arch, waits_for):
-    """Every family serves, and the dense, MoE (MLA too) and
-    encoder-decoder families train (``tests/test_torch_train.py``); the
-    others' ``train_loss`` and ``mode="train"`` raise naming the training
-    slice each waits for."""
+    """Every family serves, and every family but RWKV trains
+    (``tests/test_torch_train.py``); RWKV's ``train_loss`` and
+    ``mode="train"`` raise naming the training slice it waits for."""
     model = build_model(t_reduced(t_get_config(arch)), device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match=waits_for):

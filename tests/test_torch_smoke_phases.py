@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s MLA, VLM, hybrid and encoder-decoder serving phases
-(4d-4g) and its training phases (5a-5d) rehearsed on the CPU at the reduced
+(4d-4g) and its training phases (5a-5f) rehearsed on the CPU at the reduced
 configs' size.
 
 The phases are the functions the card run calls (``serve_mla``,
@@ -16,7 +16,8 @@ on the card.  The training phases (``train_cell``) run three steps with
 remat on, so each step launches flash twice a layer (the forward and its
 recomputation) and its backward once, counted by mask on seamless-m4t, and
 the router likewise on the MoE layers (MLA's attention launches neither
-flash kernel); their holds (i)-(iii) run as on the card."""
+flash kernel, nor do the VLM's cross layers); their holds (i)-(iii) run as
+on the card."""
 
 import dataclasses
 import importlib.util
@@ -235,3 +236,45 @@ def test_train_mla_phase_runs_on_the_cpu(rehearsal, capsys):
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3 and "1 of 60 layers" in out
     assert "train_f32_grads " in out and "train_f32_step " not in out
+
+
+def test_train_hybrid_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5e on the reduced hymba in bf16 with remat (2 layers, global
+    layer 0 and layer 1 windowed at 32) at S = 128, where the window binds
+    and the Mamba scan takes its chunked branch: each of 3 steps launches
+    flash 2 x 2 times and its backward 2 times, nothing else; holds (i)
+    and (ii) pass; the profiled step runs on the first layer alone and
+    reports the Mamba recurrence's share."""
+    cfg, f32 = train_configs("hymba-1.5b", f32_layers=2)
+    totals, profile, _ = chip_smoke.train_cell(cfg, 2, 128, f32, device="cpu",
+                                               profile_layers=1)
+    assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
+                      "decode_attention": 0, "moe_routing": 0,
+                      "moe_routing_bwd": 0, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert out.count("train_step ") == 3
+    for tag in ("train_loss_hold ", "train_f32_step ", '"profiled_layers": 1'):
+        assert tag in out, tag
+    assert profile["arch"] == cfg.name and profile["layers"] == 1
+    assert "mamba_recurrence_share" in profile
+
+
+def test_train_vlm_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5f on the reduced llama-3.2-vision in bf16 with remat (5
+    layers, cross layers at 0, 2 and 4; the f32 step on the first 3): each
+    of 3 steps launches flash 2 x 2 times and its backward 2 times, on the
+    2 self layers alone; the gates set on the cross layers; the full
+    model's cut is 20 layers, reckoned at 64.96 GB."""
+    cfg, f32 = train_configs("llama-3.2-vision-11b", f32_layers=3)
+    cfg = dataclasses.replace(cfg, n_layers=5)
+    totals, profile, _ = chip_smoke.train_cell(cfg, 2, 32, f32, device="cpu",
+                                               full_layers=40)
+    assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
+                      "decode_attention": 0, "moe_routing": 0,
+                      "moe_routing_bwd": 0, "rwkv_scan": 0}
+    out = capsys.readouterr().out
+    assert out.count("train_step ") == 3 and "5 of 40 layers" in out
+    assert "3 gated cross layers (gates 0.5)" in out
+    assert "train_f32_step " in out and profile["arch"] == cfg.name
+    assert chip_smoke.vlm_train_cut(get_config("llama-3.2-vision-11b")) == 20
+    assert '"20": 64.955007072' in capsys.readouterr().out

@@ -40,8 +40,12 @@ from repro_torch.training.train_step import (init_train_state,
                                              loss_and_grads, make_train_step)
 
 TRAINED = ["qwen3-4b", "gemma-2b", "h2o-danube-1.8b", "qwen3-32b",
-           "seamless-m4t-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"]
+           "seamless-m4t-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
+           "hymba-1.5b", "llama-3.2-vision-11b"]
 REL = 1e-5
+# the VLM's cross gates in both trees: the init's 0 would multiply the
+# whole cross path by tanh(0) = 0, and every cross weight's grad with it
+GATE = 0.5
 
 
 @pytest.fixture(autouse=True)
@@ -78,7 +82,24 @@ def batch_of(cfg, B, S, seed):
     if cfg.family == "audio":
         out["audio_embeds"] = (0.02 * rng.standard_normal(
             (B, S, cfg.d_model))).astype(np.float32)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = (0.02 * rng.standard_normal(
+            (B, cfg.vision.n_vision_tokens, cfg.d_model))).astype(np.float32)
     return out
+
+
+def with_gates(params):
+    """A copy of the numpy ``params`` tree with every cross layer's
+    ``gate_attn`` and ``gate_ffn`` at ``GATE`` (no change without them)."""
+    def visit(tree):
+        if isinstance(tree, dict):
+            return {k: (np.full_like(np.asarray(v), GATE)
+                        if k in ("gate_attn", "gate_ffn") else visit(v))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [visit(v) for v in tree]
+        return tree
+    return visit(params)
 
 
 def both(arch, **overrides):
@@ -94,9 +115,10 @@ def tbatch(batch):
 
 
 # (arch, remat, S): every trained family with remat off and on at S = 32
-# (the JAX attention naive, the loss in one piece), and at S = 1,024 (the
-# JAX chunked flash attention, MLA's on the chunked path, chunked_ce_loss's
-# chunked branch)
+# (the JAX attention naive, the loss in one piece, the Mamba scan flat), and
+# at S = 1,024 (the JAX chunked flash attention, MLA's on the chunked path,
+# chunked_ce_loss's chunked branch; hymba's reduced 32-wide window and the
+# Mamba scan's chunked branch)
 LOSS_CASES = ([(arch, remat, 32) for arch in TRAINED
                for remat in (False, True)]
               + [("qwen3-4b", True, 1024), ("gemma-2b", False, 1024),
@@ -104,14 +126,16 @@ LOSS_CASES = ([(arch, remat, 32) for arch in TRAINED
                  ("qwen3-32b", False, 1024),
                  ("seamless-m4t-medium", True, 1024),
                  ("phi3.5-moe-42b-a6.6b", True, 1024),
-                 ("deepseek-v2-236b", False, 1024)])
+                 ("deepseek-v2-236b", False, 1024),
+                 ("hymba-1.5b", True, 1024)])
 
 
 @pytest.mark.parametrize("arch,remat,S", LOSS_CASES)
 def test_train_loss_and_grads_match_jax(arch, remat, S):
     jcfg, jm, tcfg, tm = both(arch, remat=remat)
     assert (S > CE_CHUNK) == (S == 1024)
-    jp = jax.tree.map(np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    jp = with_gates(jax.tree.map(np.asarray,
+                                 jm.init_params(jax.random.PRNGKey(0))))
     batch = batch_of(jcfg, 2, S, seed=S)
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.train_loss))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -240,14 +264,16 @@ def test_adamw_keeps_bf16_params_and_slices_give_the_same_bits(monkeypatch):
 
 @pytest.mark.parametrize("arch,accum_steps", [
     ("h2o-danube-1.8b", 1), ("h2o-danube-1.8b", 2),
-    ("phi3.5-moe-42b-a6.6b", 1), ("deepseek-v2-236b", 2)],
-    ids=["1", "2", "moe-1", "mla-2"])
+    ("phi3.5-moe-42b-a6.6b", 1), ("deepseek-v2-236b", 2),
+    ("hymba-1.5b", 1), ("llama-3.2-vision-11b", 1)],
+    ids=["1", "2", "moe-1", "mla-2", "hymba-1", "vlm-1"])
 def test_train_step_matches_jax_over_three_steps(arch, accum_steps):
     jcfg, jm, tcfg, tm = both(arch)
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=20)
-    jstate = jax_init_state(jm, jax.random.PRNGKey(0))
-    state = train_state_from_jax(jax.tree.map(np.asarray, jstate), tcfg,
-                                 device="cpu")
+    jstate = jax.tree.map(np.asarray,
+                          jax_init_state(jm, jax.random.PRNGKey(0)))
+    jstate["params"] = with_gates(jstate["params"])
+    state = train_state_from_jax(jstate, tcfg, device="cpu")
     jstep = jax.jit(jax_make_step(jm, jax_optimizer.AdamWConfig(**opt),
                                   accum_steps=accum_steps))
     step = make_train_step(tm, optimizer.AdamWConfig(**opt),
@@ -424,13 +450,11 @@ def test_the_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 def test_the_launcher_trains_the_encoder_decoder_and_refuses_the_rest():
-    for arch in ("seamless-m4t-medium", "phi3.5-moe-42b-a6.6b"):
+    for arch in ("seamless-m4t-medium", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
+                 "llama-3.2-vision-11b"):
         out = launcher.main(["--arch", arch, "--device", "cpu", "--steps",
                              "2", "--batch", "2", "--seq", "8"])
         assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
-    for arch, slice_name in (("rwkv6-1.6b", "RWKV training slice"),
-                             ("hymba-1.5b", "hymba training slice"),
-                             ("llama-3.2-vision-11b", "VLM training slice")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            launcher.main(["--arch", arch, "--device", "cpu", "--steps",
-                           "1"])
+    with pytest.raises(NotImplementedError, match="RWKV training slice"):
+        launcher.main(["--arch", "rwkv6-1.6b", "--device", "cpu", "--steps",
+                       "1"])
