@@ -46,7 +46,10 @@ Phases, in order; any failure exits non-zero:
        state (ragged lengths, few heads: four CTAs a head) and an hd-16
        shape, in f32 and bf16 inputs: y and the end state bit-equal to
        ``rwkv_scan_plain`` (the serving path's parity rests on it), the
-       update in place (``state_out=state``) equal to the one out of place;
+       update in place (``state_out=state``) equal to the one out of place,
+       the chunk states a training forward writes (``ckpt``, the state
+       before every 64th step) bit-equal to the plain version's, with y and
+       the end state those without them;
        ``rwkv_scan.LANES`` and ``COLS`` are the kernel's own;
        no PyTorch call computes the recurrence, so no library yardstick;
    (f) ``moe_routing`` at [T, D, E, k] = [4096, 4096, 16, 2] (the phi3.5
@@ -83,6 +86,17 @@ Phases, in order; any failure exits non-zero:
        order), two calls bit-identical; the kernel's, its kernels' and the
        plain version's milliseconds and the bound (3 x 2 T D E f32
        operations, or the bytes); no one PyTorch call computes it;
+   (j) the WKV backward (``rwkv_scan_bwd``, one kernel a call) against
+       ``rwkv_scan_bwd_plain`` at rwkv6's training shape [B, S, H, hd] =
+       [2, 4096, 32, 64] from zeros, a ragged last chunk [2, 1000, 8, 64],
+       [2, 333, 8, 16], [1, 515, 2, 64] from a random state with a nonzero
+       end-state cotangent, exactly one chunk [1, 64, 2, 32] and one step
+       [2, 1, 4, 64] (from a state): dr, dk, dv, dw and d state_0 bit-equal
+       (the same roundings in the same order), two calls bit-identical, one
+       ``rwkv_scan_bwd_kernel`` a call in the profiler; the kernel's and the
+       plain version's milliseconds and the bound (``RWKV_BWD_OPS`` hd^2
+       f32 operations a step and head, or the bytes); no PyTorch call
+       computes it; ``rwkv_scan.CHUNK`` is both kernels' own;
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -232,6 +246,12 @@ Phases, in order; any failure exits non-zero:
    and 1 backward call a self layer, none for the cross layers (their
    shapes take the XLA-path attention); holds (i) and (ii) on its first 5
    layers (one cross layer);
+5g. training the RWKV family: rwkv6-1.6b at full width and depth (24
+   layers, 1.609 B parameters), batch 2 x 4,096, 3 steps; each step 48 WKV
+   forwards (24 and their remat recomputation, each writing its chunk
+   states) and 24 WKV backward calls, no flash, decode or router launch;
+   holds (i) and (ii) on its first 2 layers; the fourth step profiled at
+   full depth, with the WKV forward's and backward's device time;
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -343,6 +363,16 @@ RWKV_HOLDS = ((4, 1024, 32, 64, False), (4, 1, 32, 64, True),
 # the scan against its plain version: bit-equal (the same roundings in the
 # same order); max |delta| <= RWKV_REL * max |plain| is reported beside it
 RWKV_REL = 1e-5
+# the WKV backward (B, S, H, hd, from a random state with a nonzero
+# end-state cotangent): rwkv6's training shape from zeros, a ragged last
+# chunk, the tests' reduced head dim, a random state over few heads,
+# exactly one chunk, one step; held bit for bit
+RWKV_BWD_HOLDS = ((2, 4096, 32, 64, False), (2, 1000, 8, 64, False),
+                  (2, 333, 8, 16, False), (1, 515, 2, 64, True),
+                  (1, 64, 2, 32, False), (2, 1, 4, 64, True))
+# the backward's operations a step and (batch, head): the recomputed state
+# (3 hd^2), four products (4), the G update (3) and four sums (~4)
+RWKV_BWD_OPS = 14
 # parity: max |logit delta| / max |plain logit| per row and step
 LOGIT_BOUND = {"float32": 1e-4, "bfloat16": 3e-2}
 # the MoE serving cell: phi3.5-moe at full width, its depth cut from 32 to
@@ -422,6 +452,11 @@ HYMBA_TRAIN_F32_LAYERS = HYMBA_TRAIN_PROFILE_LAYERS = 4
 # (``vlm_train_cut``: 20 layers, 64.96 GB), 5a's batch, gates at VLM_GATE,
 # its f32 step held on its first 5 layers (cross layer 3 among them)
 VLM_TRAIN_F32_LAYERS, VLM_TRAIN_ROOM_GB, CARD_GB = 5, 15.0, 80.0
+# the RWKV training cell: rwkv6-1.6b at full width and depth (1.609 B
+# parameters, 19.3 GB of train state), 5a's batch, its f32 step held on its
+# first 2 layers (the plain scan and its backward loop over 4,096 steps,
+# ~25 us of host a launch: several seconds a layer)
+RWKV_TRAIN_F32_LAYERS = 2
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -1867,6 +1902,19 @@ def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
     if not (torch.equal(y, y_plain) and torch.equal(s, s_plain)):
         raise SystemExit(f"FAIL {label}: not bit-equal to rwkv_scan_plain "
                          f"(max abs err {err}, within RWKV_REL: {ok})")
+    # the chunk states a training forward writes, and its y and end state
+    ck, ck_plain = (torch.full((B, H, rs.n_chunks(S), hd, hd), math.nan,
+                               device="cuda") for _ in range(2))
+    y3, s3 = rs._scan(*ins, state, None, ck)
+    rs.rwkv_scan_plain(*ins, state, ckpt=ck_plain)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck, ck_plain) and torch.equal(y3, y)
+            and torch.equal(s3, s)):
+        raise SystemExit(f"FAIL {label}: with ckpt, the chunk states are "
+                         f"{'' if torch.equal(ck, ck_plain) else 'not '}"
+                         "bit-equal to rwkv_scan_plain's, y and the end "
+                         f"state {'' if torch.equal(y3, y) else 'not '}"
+                         "those without it")
     bound_ms, bound_by = rwkv_bound(B, S, H, hd, y.element_size(),
                                     with_state, dtype_name, rate)
     r = {"max_abs_err": err, "exact": True,
@@ -1879,8 +1927,89 @@ def hold_rwkv(B, S, H, hd, with_state, dtype_name, rate):
          "plain_ms": time_ms(lambda: rs.rwkv_scan_plain(*ins, state), reps=3,
                              batch=1),
          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"hold {label}: bit-equal, in place = out of place, "
-          + json.dumps(r), flush=True)
+    print(f"hold {label}: bit-equal, in place = out of place, chunk "
+          "states bit-equal, " + json.dumps(r), flush=True)
+    return r
+
+
+def rwkv_bwd_bound(B, S, H, hd, with_state, rate):
+    """(bound_ms, bound_by) of one backward: r, k, v, w, dy read and dr,
+    dk, dv, dw written once, the chunk states read, the end state's
+    cotangent (if given) read and d state_0 written; ``RWKV_BWD_OPS`` hd^2
+    f32 operations a step and (batch, head)."""
+    state = 4 * B * H * hd * hd
+    nbytes = (9 * 4 * B * S * H * hd
+              + state * (-(-S // 64) + (2 if with_state else 1)))
+    return attn_bound(RWKV_BWD_OPS * hd * hd * B * S * H, nbytes, "float32",
+                      rate)
+
+
+def hold_rwkv_bwd(B, S, H, hd, with_state, rate):
+    """Phase 2j at one shape: ``rwkv_scan_bwd`` against
+    ``rwkv_scan_bwd_plain`` on the same card inputs (r, k, v, w, the chunk
+    states of the forward kernel, a random dy and, ``with_state``, a
+    random end-state cotangent), all five outputs bit for bit; two calls
+    bit-identical; one launch a call, the profiler's kernel its
+    ``rwkv_scan_bwd_kernel``.  Times: the kernel (device and per call) and
+    the plain version; no PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels import rwkv_scan as rs
+    ins, state = rwkv_inputs(B, S, H, hd, torch.float32, S + hd + 7,
+                             with_state)
+    rng = np.random.default_rng(S + hd + 8)
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, hd),
+                                              dtype=np.float32)).cuda()
+    ds = (torch.from_numpy(rng.standard_normal(
+        (B, H, hd, hd), dtype=np.float32)).cuda() if with_state else None)
+    ckpt = torch.empty((B, H, rs.n_chunks(S), hd, hd), device="cuda")
+    r, k, v, w, u = ins
+    rs._scan(r, k, v, w, u, state, None, ckpt)
+    start = ("from a random state, nonzero end cotangent" if with_state
+             else "from zeros")
+    label = f"rwkv_scan_bwd (B, S, H, hd)={(B, S, H, hd)} {start}"
+    args = (r, k, v, w, ckpt, dy, ds)
+    before = rs.rwkv_scan_bwd.launches
+    got, again = rs.rwkv_scan_bwd(*args), rs.rwkv_scan_bwd(*args)
+    torch.cuda.synchronize()
+    want = rs.rwkv_scan_bwd_plain(*args)
+    repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    equal = [exact(a, b) for a, b in zip(got, want)]
+    if (rs.rwkv_scan_bwd.launches != before + 2 or not repeat
+            or not finite or not all(equal)):
+        raise SystemExit(
+            f"FAIL {label}: launches {rs.rwkv_scan_bwd.launches - before}, "
+            f"repeat bit-identical {repeat}, finite {finite}, bit-equal "
+            f"(dr, dk, dv, dw, ds0) {equal}, max abs err "
+            f"{max_abs_err(got, want)}")
+    err = max_abs_err(got, want)
+    del again, want
+
+    def kernel():
+        return rs.rwkv_scan_bwd(*args)
+
+    # the runtime side sees every launch; the device side names the kernel
+    # (it misses some of this long kernel's launches, or all of them in a
+    # trace, so its counts are not held)
+    device, api = kernels_per_call(kernel, reps=5)
+    if api != 1 or any("rwkv_scan_bwd_kernel" not in name
+                       for name in device):
+        raise SystemExit(f"FAIL {label}: {api} launches a call, kernels "
+                         f"{device}")
+    bound_ms, bound_by = rwkv_bwd_bound(B, S, H, hd, with_state, rate)
+    big = B * S * H > 100_000      # the plain loop takes seconds here
+    r = {"max_abs_err": err, "exact": True, "repeat_bit_identical": True,
+         "kernels_per_call": device,
+         "ms": time_ms(kernel, reps=5, batch=2),
+         "device_ms": device_ms(kernel, "rwkv_scan_bwd_kernel", reps=5),
+         "plain_ms": time_ms(lambda: rs.rwkv_scan_bwd_plain(*args),
+                             reps=1 if big else 3, batch=1),
+         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"hold {label}: bit-equal, repeat bit-identical, one kernel a "
+          "call, " + json.dumps(r), flush=True)
+    del got, args, ckpt
+    torch.cuda.empty_cache()
     return r
 
 
@@ -2853,12 +2982,15 @@ def serve_encdec(ecfg, device=None):
 
 
 def train_wrappers():
-    """The kernel wrappers a training step is counted by: the flash and
-    router forwards and backwards, and the two that must not launch."""
+    """The kernel wrappers a training step is counted by: the flash,
+    router and WKV forwards and backwards, and decode attention, which
+    must not launch."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_routing as mr
+    from repro_torch.kernels import rwkv_scan as rs
     return dict(kernel_wrappers(), flash_attention_bwd=fa.flash_attention_bwd,
-                moe_routing_bwd=mr.moe_routing_bwd)
+                moe_routing_bwd=mr.moe_routing_bwd,
+                rwkv_scan_bwd=rs.rwkv_scan_bwd)
 
 
 def plain_launch_forward(q, k, v, causal, window, with_lse):
@@ -2878,29 +3010,42 @@ def plain_launch_routing(x, router_w, top_k, design):
     return mr.moe_routing_plain(x, router_w, top_k)
 
 
+def plain_launch_rwkv(r, k, v, w, u, state, state_out, ckpt):
+    """``rwkv_scan_plain`` in the place of the WKV kernel's launch."""
+    from repro_torch.kernels import rwkv_scan as rs
+    return rs.rwkv_scan_plain(r, k, v, w, u, state, state_out=state_out,
+                              ckpt=ckpt)
+
+
 def attention_plain_grad():
-    """The flash and router kernels' plain versions, forward and backward,
-    in the places where ``flash_attention``, ``moe_routing`` and their
-    autograd Functions launch them: the same wiring (saved tensors, masks,
-    casts) on the plain versions."""
+    """The flash, router and WKV kernels' plain versions, forward and
+    backward, in the places where ``flash_attention``, ``moe_routing``,
+    ``rwkv_scan`` and their autograd Functions launch them: the same wiring
+    (saved tensors, masks, chunk states, casts) on the plain versions."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_routing as mr
+    from repro_torch.kernels import rwkv_scan as rs
     return {"repro_torch.kernels.flash_attention._launch_forward":
             plain_launch_forward,
             "repro_torch.kernels.flash_attention.flash_attention_bwd":
             fa.flash_attention_bwd_plain,
             "repro_torch.kernels.moe_routing._launch": plain_launch_routing,
             "repro_torch.kernels.moe_routing.moe_routing_bwd":
-            mr.moe_routing_bwd_plain}
+            mr.moe_routing_bwd_plain,
+            "repro_torch.kernels.rwkv_scan._launch": plain_launch_rwkv,
+            "repro_torch.kernels.rwkv_scan.rwkv_scan_bwd":
+            rs.rwkv_scan_bwd_plain}
 
 
 def train_plains():
     """The forward kernels' plain versions for a loss without a gradient:
-    the attention's and the router's, under the names the model looks them
-    up by."""
+    the attention's, the router's and the WKV scan's, under the names the
+    model looks them up by."""
     from repro_torch.kernels import moe_routing as mr
+    from repro_torch.kernels import rwkv_scan as rs
     return dict(attention_plains(), **{
-        "repro_torch.models.layers.moe_routing": mr.moe_routing_plain})
+        "repro_torch.models.layers.moe_routing": mr.moe_routing_plain,
+        "repro_torch.models.layers.rwkv_scan": rs.rwkv_scan_plain})
 
 
 def patched(patches):
@@ -2954,7 +3099,8 @@ def device_split(prof):
     """Device ms of a profiled window by kind of kernel, from its names."""
     from torch.autograd import DeviceType
     split = {"flash_forward": 0.0, "flash_backward": 0.0,
-             "router_forward": 0.0, "router_backward": 0.0, "gemm": 0.0,
+             "router_forward": 0.0, "router_backward": 0.0,
+             "wkv_forward": 0.0, "wkv_backward": 0.0, "gemm": 0.0,
              "mamba_recurrence": 0.0, "elementwise": 0.0, "reduce": 0.0,
              "other": 0.0}
     n = 0
@@ -2963,7 +3109,11 @@ def device_split(prof):
             continue
         name, ms = e.name.lower(), e.time_range.elapsed_us() / 1e3
         n += 1
-        if "moe_routing_bwd_" in name:
+        if "rwkv_scan_bwd_kernel" in name:
+            split["wkv_backward"] += ms
+        elif "rwkv_scan_kernel" in name:
+            split["wkv_forward"] += ms
+        elif "moe_routing_bwd_" in name:
             split["router_backward"] += ms
         elif "moe_routing_kernel" in name:
             split["router_forward"] += ms
@@ -3231,13 +3381,14 @@ def resume_check(arch, device=None):
 
 def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
                f32_hold="step", full_layers=None, profile_layers=None):
-    """Phases 5a-5f on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
+    """Phases 5a-5g on ``cfg`` at full width: ``TRAIN_STEPS`` AdamW steps
     (the launcher's schedule rule) through ``make_train_step`` on batches
     of the launcher's ``DataLoader`` copy, each step's launches counted
-    from 0 and held: on F flash layers (all but MLA's and the VLM's cross
-    layers) 2 F flash forwards (remat recomputes each layer's) and F
-    backward calls, counted by mask as well; on M MoE layers 2 M router
-    forwards and M router backward calls; no decode or WKV launch; step
+    from 0 and held: on F flash layers (all but MLA's, the VLM's cross
+    layers and RWKV's) 2 F flash forwards (remat recomputes each layer's)
+    and F backward calls, counted by mask as well; on M MoE layers 2 M
+    router forwards and M router backward calls; on R RWKV layers 2 R WKV
+    forwards and R WKV backward calls; no decode launch; step
     seconds, tokens/s, peak memory beside the reckoned train state (12
     bytes a bf16 parameter: param, grad, f32 m and v); one more profiled
     step, on the first ``profile_layers`` layers where given.  A VLM's
@@ -3271,9 +3422,10 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
     E = cfg.encdec.n_enc_layers if cfg.encdec else 0
     L = cfg.n_layers
     layout = build_layout(cfg)
-    flash_layers = sum(g.n for g in layout
-                       if not g.spec.mla and g.spec.kind != "cross")
+    flash_layers = sum(g.n for g in layout if not g.spec.mla
+                       and g.spec.kind not in ("cross", "rwkv"))
     moe_layers = sum(g.n for g in layout if g.spec.kind == "moe")
+    rwkv_layers = sum(g.n for g in layout if g.spec.kind == "rwkv")
     cross_layers = L if cfg.encdec else 0
     depth = f"{L} of {full_layers}" if full_layers else f"{L}"
     moe = (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}" if cfg.moe
@@ -3296,7 +3448,8 @@ def train_cell(cfg, B, S, f32_cfg, resume=False, device=None,
     fwd = 2 if cfg.remat else 1
     want = {"flash_attention": fwd * calls, "flash_attention_bwd": calls,
             "decode_attention": 0, "moe_routing": fwd * moe_layers,
-            "moe_routing_bwd": moe_layers, "rwkv_scan": 0}
+            "moe_routing_bwd": moe_layers, "rwkv_scan": fwd * rwkv_layers,
+            "rwkv_scan_bwd": rwkv_layers}
     want_masks = {"forward": {"causal": fwd * (calls - non_causal),
                               "non_causal": fwd * non_causal},
                   "backward": {"causal": calls - non_causal,
@@ -3581,6 +3734,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = phase_done("2i (router backward)", t_phase)
 
+    # 2j. the WKV backward against its plain version, bit for bit
+    if (_build.load("rwkv_scan").synergai_rwkv_chunk(),
+            _build.load("rwkv_scan_bwd").synergai_rwkv_bwd_chunk()) != (
+                rs.CHUNK, rs.CHUNK):
+        raise SystemExit("FAIL rwkv_scan_bwd: the kernels' chunk is not "
+                         "rwkv_scan.CHUNK")
+    rwkv_bwd_holds = {shape: hold_rwkv_bwd(*shape, rate)
+                      for shape in RWKV_BWD_HOLDS}
+    t_phase = phase_done("2j (WKV backward)", t_phase)
+
     # 3, 3f-3g. the scheduling path at full size, drift, the comparison
     sched = scheduling_path()
     fleet = sched.fleet
@@ -3786,6 +3949,15 @@ def main() -> int:
         full_layers=get_config(VLM_ARCH).n_layers)
     t_phase = phase_done(f"5f (train {VLM_ARCH})", t_phase)
 
+    # 5g. training the RWKV family: rwkv6-1.6b at full width and depth (its
+    # f32 step on 2 layers)
+    rwcfg = get_config(RWKV_ARCH)
+    rwkv_train_launches, rwkv_train_profile, rwkv_train_peak = train_cell(
+        rwcfg, TRAIN_BATCH, TRAIN_SEQ,
+        dataclasses.replace(rwcfg, n_layers=RWKV_TRAIN_F32_LAYERS,
+                            dtype="float32"))
+    t_phase = phase_done(f"5g (train {RWKV_ARCH})", t_phase)
+
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
     print("launch floor: " + json.dumps(
@@ -3924,11 +4096,13 @@ def main() -> int:
     dec_shape = (SERVE_BATCH, 1, rcfg.d_model // hd, hd, True)
     pre = rwkv_holds[pre_shape + ("float32",)]
     dec = rwkv_holds[dec_shape + ("float32",)]
+    paths = {RWKV_ARCH: rwkv_launches["rwkv_scan"],
+             f"train {RWKV_ARCH}": rwkv_train_launches["rwkv_scan"]}
     rows.append({
         "name": "rwkv_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
         "replaces": "src/repro/kernels/rwkv_scan.py:22",
-        "launches": rwkv_launches["rwkv_scan"],
+        "launches": sum(paths.values()), "launches_by_path": paths,
         "max_abs_err": max(r["max_abs_err"] for r in rwkv_holds.values()),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
@@ -3936,6 +4110,24 @@ def main() -> int:
         "shape": list(pre_shape[:4]), "dtype": "float32",
         "decode_step": dict({k: dec[k] for k in TIMES + ("bound_by",)},
                             shape=list(dec_shape[:4]))})
+    # the WKV backward at rwkv6's training shape, from 2j; its launches over
+    # the RWKV training path's counted steps
+    shape = (TRAIN_BATCH, TRAIN_SEQ, rcfg.d_model // hd, hd, False)
+    r = rwkv_bwd_holds[shape]
+    rows.append({
+        "name": "rwkv_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv_scan_bwd.cu",
+        "replaces": "src/repro/training/train_step.py:40 (no Pallas "
+                    "kernel: jax.value_and_grad through the WKV scan of "
+                    "src/repro/models/layers.py:466)",
+        "launches": rwkv_train_launches["rwkv_scan_bwd"],
+        "launches_by_path": {f"train {RWKV_ARCH}":
+                             rwkv_train_launches["rwkv_scan_bwd"]},
+        "max_abs_err": max(h["max_abs_err"] for h in rwkv_bwd_holds.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "device_ms": r["device_ms"], "shape": list(shape[:4]),
+        "dtype": "float32"})
     # the router at the MoE serving path's shapes (x in bf16, the model's),
     # from 2f: the prefill and, under "decode_step", one decode step
     n_exp, top_k = mcfg.moe.n_experts, mcfg.moe.top_k
@@ -4020,7 +4212,8 @@ def main() -> int:
                        (moe_train_profile, moe_train_peak),
                        (mla_train_profile, mla_train_peak),
                        (hymba_train_profile, hymba_train_peak),
-                       (vlm_train_profile, vlm_train_peak)):
+                       (vlm_train_profile, vlm_train_peak),
+                       (rwkv_train_profile, rwkv_train_peak)):
         print(f"train step {line['arch']}: " + json.dumps(
             {**{k: line[k] for k in ("layers", "host_ms", "device_ms",
                                      "idle_share", "device_ms_by_kind",

@@ -50,6 +50,14 @@
 // reads its entries S[i][j] before the first step and writes the same
 // entries after the last; no other thread touches them.
 //
+// Chunk states (training): with a ckpt buffer, [B, H, ceil(S / 64), hd,
+// hd] f32, each lane also writes its entries of the state before steps 0,
+// 64, 128, ... (the start state at index 0), the states the backward
+// (rwkv_scan_bwd.cu) recomputes each 64-step chunk from.  The write is
+// keyed on the step index, not on the staging pass (C steps, not 64).  A
+// template flag compiles it out of the serving instances (ckpt null), so y
+// and the end state are the same bits either way.
+//
 // Bound.  Bytes: r, k, v, w read and y written once (5 * B*S*H*hd
 // elements), the state read (if given) and written once.  Operations: about
 // 6 * hd^2 per step and (b, h), each rounded on its own (no FMA); at the
@@ -72,6 +80,7 @@ constexpr int kLanes = 4;   // lanes sharing a group of value columns
 constexpr int kCols = 2;    // value columns a lane holds
 constexpr int kUnroll = 4;  // steps unrolled (their trees overlap)
 constexpr int kStageUnits = 1024;   // 4-byte units of one staged array
+constexpr int kChunk = 64;  // steps between two saved chunk states
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load1(const float* p) { return *p; }
@@ -147,13 +156,13 @@ struct Scan {
   static constexpr int kMinCols = 32 / L * NC;   // a warp a CTA at least
 };
 
-template <int HD, typename T>
+template <int HD, typename T, bool CK>
 __global__ void __launch_bounds__(HD / kCols * kLanes)
 rwkv_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ w,
                  const float* __restrict__ u, const float* s_in,
-                 float* s_out, T* __restrict__ y, int S, int H, int split,
-                 int has_state) {
+                 float* s_out, T* __restrict__ y, float* __restrict__ ckpt,
+                 int S, int H, int split, int has_state) {
   using P = Scan<HD, T>;
   constexpr int L = P::L, NC = P::NC, M = P::M, EPU = P::EPU, LG = P::LG;
   constexpr int RS = P::RS, URS = P::URS, UPS = P::UPS, C = P::C;
@@ -215,6 +224,18 @@ rwkv_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     const T* vt = reinterpret_cast<const T*>(vst[buf]) + jl;
 #pragma unroll(kUnroll)
     for (int tt = 0; tt < n; ++tt) {
+      if constexpr (CK) {
+        if (((t0 + tt) & (kChunk - 1)) == 0) {  // the state before the step
+          float* ck = ckpt + (static_cast<size_t>(bh) * ((S + kChunk - 1) /
+                                                         kChunk) +
+                              (t0 + tt) / kChunk) * HD * HD + j;
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+              ck[static_cast<size_t>(t + L * m) * HD + c] = st[c][m];
+        }
+      }
       float vj[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) vj[c] = load1(vt + tt * ncol + c);
@@ -263,31 +284,44 @@ rwkv_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
       s_out[sbase + static_cast<size_t>(t + L * m) * HD + c] = st[c][m];
 }
 
-template <int HD, typename T>
+template <int HD, typename T, bool CK>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const float* u, const float* s_in, float* s_out, void* y, int B,
-           int S, int H, int split, int has_state, cudaStream_t stream) {
+           const float* u, const float* s_in, float* s_out, void* y,
+           float* ckpt, int B, int S, int H, int split, int has_state,
+           cudaStream_t stream) {
   using P = Scan<HD, T>;
   static_assert(P::M % 4 == 0, "a lane reads its rows four at a time");
   if (HD / split < P::kMinCols) return static_cast<int>(cudaErrorInvalidValue);
-  rwkv_scan_kernel<HD, T>
+  rwkv_scan_kernel<HD, T, CK>
       <<<B * H * split, HD / split / P::NC * P::L, 0, stream>>>(
           static_cast<const T*>(r), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(w), u, s_in, s_out,
-          static_cast<T*>(y), S, H, split, has_state);
+          static_cast<T*>(y), ckpt, S, H, split, has_state);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, typename T>
+int launch_ck(const void* r, const void* k, const void* v, const void* w,
+              const float* u, const float* s_in, float* s_out, void* y,
+              float* ckpt, int B, int S, int H, int split, int has_state,
+              cudaStream_t stream) {
+  if (ckpt != nullptr)
+    return launch<HD, T, true>(r, k, v, w, u, s_in, s_out, y, ckpt, B, S, H,
+                               split, has_state, stream);
+  return launch<HD, T, false>(r, k, v, w, u, s_in, s_out, y, nullptr, B, S,
+                              H, split, has_state, stream);
 }
 
 template <typename T>
 int dispatch(int hd, const void* r, const void* k, const void* v,
              const void* w, const float* u, const float* s_in, float* s_out,
-             void* y, int B, int S, int H, int split, int has_state,
-             cudaStream_t stream) {
+             void* y, float* ckpt, int B, int S, int H, int split,
+             int has_state, cudaStream_t stream) {
   switch (hd) {
 #define SYNERGAI_HD(N)                                                    \
   case N:                                                                 \
-    return launch<N, T>(r, k, v, w, u, s_in, s_out, y, B, S, H, split,    \
-                        has_state, stream);
+    return launch_ck<N, T>(r, k, v, w, u, s_in, s_out, y, ckpt, B, S, H,  \
+                           split, has_state, stream);
     SYNERGAI_HD(16)
     SYNERGAI_HD(32)
     SYNERGAI_HD(64)
@@ -302,7 +336,8 @@ int dispatch(int hd, const void* r, const void* k, const void* v,
 // Plain C interface, loaded with ctypes.  r, k, v, w, y: [B, S, H, hd],
 // contiguous device tensors of one dtype (0 = f32, 1 = bf16), 4-byte
 // aligned; u: [H, hd] f32; s_in (read only if has_state) and s_out:
-// [B, H, hd, hd] f32, which may be the same buffer.  split: CTAs per
+// [B, H, hd, hd] f32, which may be the same buffer; ckpt: null, or
+// [B, H, ceil(S / 64), hd, hd] f32 for the chunk states.  split: CTAs per
 // (b, h), a power of two with hd / split >= 32 / kLanes * kCols columns (a
 // warp a CTA).  Launches one kernel
 // asynchronously on `stream`; returns cudaGetLastError().
@@ -310,24 +345,26 @@ int dispatch(int hd, const void* r, const void* k, const void* v,
 extern "C" int synergai_rwkv_scan(const void* r, const void* k, const void* v,
                                   const void* w, const float* u,
                                   const float* s_in, float* s_out, void* y,
-                                  int dtype, int B, int S, int H, int hd,
-                                  int split, int has_state,
+                                  float* ckpt, int dtype, int B, int S, int H,
+                                  int hd, int split, int has_state,
                                   cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || split < 1 || (split & (split - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch<float>(hd, r, k, v, w, u, s_in, s_out, y, B, S, H, split,
-                           has_state, stream);
+    return dispatch<float>(hd, r, k, v, w, u, s_in, s_out, y, ckpt, B, S, H,
+                           split, has_state, stream);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(hd, r, k, v, w, u, s_in, s_out, y, B, S,
-                                   H, split, has_state, stream);
+    return dispatch<__nv_bfloat16>(hd, r, k, v, w, u, s_in, s_out, y, ckpt,
+                                   B, S, H, split, has_state, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The lanes that share a column group (rwkv_scan.LANES) and the columns a
-// lane holds (rwkv_scan.COLS).
+// The lanes that share a column group (rwkv_scan.LANES), the columns a
+// lane holds (rwkv_scan.COLS) and the steps between chunk states
+// (rwkv_scan.CHUNK).
 extern "C" int synergai_rwkv_lanes() { return kLanes; }
 extern "C" int synergai_rwkv_cols() { return kCols; }
+extern "C" int synergai_rwkv_chunk() { return kChunk; }
 
 extern "C" const char* synergai_rwkv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

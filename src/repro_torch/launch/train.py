@@ -9,10 +9,9 @@ checkpoint/restart, as the JAX launcher does on the CPU:
         [--ckpt-dir DIR] [--ckpt-every 50] [--device cpu]
 
 It runs on the card (attention on the flash kernel and its backward, the
-MoE router on its kernel and its backward) unless ``--device cpu`` asks for
-the CPU (their plain versions).  Every family trains (dense, MoE with MLA
-too, hymba, the VLM, encoder-decoder) but RWKV, which raises
-``NotImplementedError`` naming the training slice it waits for.  Params
+MoE router and the RWKV WKV scan on theirs) unless ``--device cpu`` asks
+for the CPU (their plain versions).  Every family trains (dense, MoE with
+MLA too, RWKV, hymba, the VLM, encoder-decoder).  Params
 come from ``torch.Generator(...).manual_seed(0)``; the batches from the
 ``DataLoader`` copy, seeded with the step it starts from, and the
 encoder-decoder's ``audio_embeds`` (the VLM's ``vision_embeds``) from the

@@ -17,11 +17,10 @@ VLM's gated cross-attention layers over a context input), ``"hymba"``
 ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat`` is set, the
 counterpart of the JAX stack's ``jax.checkpoint(..., nothing_saveable)``:
 the backward recomputes a layer's activations from its input (the router
-kernel's forward among them, whose picks come out the same).  Every kind
-trains but ``"rwkv"``: a family with RWKV layers raises
-``NotImplementedError`` naming the later training slice it waits for
-(``training_waits_for``).  The JAX stack's ``constrain_seq`` is a no-op off
-a device mesh and waits for the sharding slice.
+kernel's forward among them, whose picks come out the same; the WKV
+scan's forward, which writes the same chunk states).  Every kind trains.
+The JAX stack's ``constrain_seq`` is a no-op off a device mesh and waits
+for the sharding slice.
 """
 
 from __future__ import annotations
@@ -156,23 +155,6 @@ def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
     return layers.init_attn_cache(cfg, batch, buf, dtype, device, lead)
 
 
-def training_waits_for(cfg: ModelConfig) -> Optional[str]:
-    """The later training slice that ``cfg``'s family waits for (RWKV's),
-    or None where the port trains it (every other family)."""
-    if any(g.spec.kind == "rwkv" for g in build_layout(cfg)):
-        return layers.RWKV_TRAINING
-    return None
-
-
-def refuse_training(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the slice ``cfg``'s family
-    waits for, if it does not train yet."""
-    waits_for = training_waits_for(cfg)
-    if waits_for is not None:
-        raise NotImplementedError(f"training {cfg.name} waits for "
-                                  f"{waits_for}")
-
-
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
                    pos, ctx=None, absorb_mla=False):
     if spec.kind == "rwkv":
@@ -184,6 +166,8 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
         h, cm_shift = layers.rwkv_channel_mix(
             p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps), mode=mode,
             cache=cache.get("cm_shift"))
+        if mode == "train":
+            return x + h, None
         return x + h, dict(tm_cache, cm_shift=cm_shift)
     if spec.kind == "cross":      # residuals gated by tanh(gate)
         h, c_cache = layers.cross_sublayer(
@@ -268,7 +252,6 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
         raise ValueError(f"mode {mode!r}")
     groups = build_layout(cfg)
     if mode == "train":
-        refuse_training(cfg)
         for g, gparams in zip(groups, params["groups"]):
             for i in range(g.n):
                 layer = partial(_train_layer, tree_map(lambda t: t[i],

@@ -22,13 +22,10 @@ with its conv and state cache.
     mamba_branch(params, cfg, x, *, mode, cache) -> (y, {"conv", "ssm"})
 
 ``mode``: "train" | "prefill" | "decode".  "train" runs the full sequence
-with no cache, as prefill does, and returns None for the cache: the GQA,
-cross-attention and MLA sublayers, the MoE FFN and the Mamba branch train
-(the flash and router kernels have backwards; MLA's attention is the
-XLA-path ports, which autograd differentiates; the Mamba recurrence runs
-under ``common.chunked_time_scan``); the RWKV mixes raise
-``NotImplementedError`` naming the later training slice they wait for
-(``RWKV_TRAINING``);
+with no cache, as prefill does, and returns None for the cache; every
+sublayer trains (the flash, router and WKV-scan kernels have backwards;
+MLA's attention is the XLA-path ports, which autograd differentiates; the
+Mamba recurrence runs under ``common.chunked_time_scan``);
 ``cache``: {"k", "v"} [B, buf, K, hd] (None in prefill), the cross cache
 {"ck", "cv"} [B, S_ctx, K, hd], the MLA latent cache {"ckv" [B, buf, R],
 "krope" [B, buf, rope]}, or the RWKV cache {"state" [B, H, hd, hd] f32,
@@ -43,7 +40,9 @@ the attention and latent caches at the token's slot, the RWKV state by the
 by a copy, the Mamba conv history and state by a copy; the cross cache is
 read, never written.  The WKV recurrence, which the JAX layer runs as
 ``common.chunked_time_scan`` (a remat device for training), runs on
-``kernels.rwkv_scan``.  The MoE router (the JAX
+``kernels.rwkv_scan``; in training its forward kernel saves the state
+before every 64th step and its backward kernel recomputes each chunk from
+it, the same O(S / 64) states that scan keeps.  The MoE router (the JAX
 ``_route``/``_route_grouped``: logits, softmax, top-k mask and renormalized
 gates) runs on ``kernels.moe_routing``; the expert products stay
 ``torch.einsum``, plain large products that the JAX package leaves to XLA.
@@ -71,18 +70,6 @@ from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.models import common
 from repro_torch.models.common import (apply_rope, attention, dense_init,
                                        head_rms_norm, rms_norm, rope_freqs)
-
-
-# the later training slice the layers that do not train yet wait for
-RWKV_TRAINING = "the RWKV training slice (a WKV-scan backward kernel)"
-
-
-def refuse_train(mode, what, waits_for):
-    """Raise ``NotImplementedError`` naming ``waits_for`` if ``mode`` is
-    "train"."""
-    if mode == "train":
-        raise NotImplementedError(f"mode 'train' on {what}: waits for "
-                                  f"{waits_for}")
 
 
 def _cache_write(buf, update, idx):
@@ -468,10 +455,10 @@ def _rwkv_mix(tm, x, x_prev):
 
 def rwkv_time_mix(p, cfg: ModelConfig, x, *, mode, cache):
     """RWKV6 WKV time-mix.  The recurrence runs on the ``rwkv_scan`` kernel,
-    from zeros in prefill and from the cache's state in decode, where the
-    kernel writes the end state back into the cache (and this function the
-    token shift)."""
-    refuse_train(mode, "the RWKV time mix", RWKV_TRAINING)
+    from zeros in prefill and training and from the cache's state in
+    decode, where the kernel writes the end state back into the cache (and
+    this function the token shift).  Training returns no cache (None), as
+    the JAX layer does; its gradient goes through ``RwkvScanFn``."""
     tm = p["tm"]
     B, S, D = x.shape
     hd = cfg.ssm.rwkv_head_dim
@@ -501,14 +488,15 @@ def rwkv_time_mix(p, cfg: ModelConfig, x, *, mode, cache):
     out = out.to(x.dtype) * g.to(x.dtype)
     y = out @ tm["wo"]
 
+    if mode == "train":
+        return y, None
     shift = cache["tm_shift"].copy_(x[:, -1, :]) if decode else x[:, -1, :]
     return y, {"state": state_end, "tm_shift": shift}
 
 
 def rwkv_channel_mix(p, cfg: ModelConfig, x, *, mode, cache):
     """RWKV6 channel-mix.  ``cache``: the [B, D] token shift (decode), which
-    is written in place; returns (y, the new shift)."""
-    refuse_train(mode, "the RWKV channel mix", RWKV_TRAINING)
+    is written in place; returns (y, the new shift; None in training)."""
     cm = p["cm"]
     dx = _token_shift(x, cache) - x
     xk = x + dx * cm["mu_k"]
@@ -516,6 +504,8 @@ def rwkv_channel_mix(p, cfg: ModelConfig, x, *, mode, cache):
     k = torch.relu(xk @ cm["wk"]).square()
     v = k @ cm["wv"]
     r = torch.sigmoid(xr @ cm["wr"])
+    if mode == "train":
+        return r * v, None
     return r * v, (cache.copy_(x[:, -1, :]) if mode == "decode"
                    else x[:, -1, :])
 

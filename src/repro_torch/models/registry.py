@@ -32,9 +32,7 @@ family of the registry runs (dense, MoE with MLA too, RWKV, hybrid hymba,
 VLM, encoder-decoder).  ``train_loss`` (a batch of ``tokens`` and
 ``labels`` [B, S], a VLM's with ``vision_embeds``, an encoder-decoder's
 with ``audio_embeds``) is the JAX package's: the decoder stack in train
-mode, then ``chunked_ce_loss``.  Every family trains but RWKV, which raises
-``NotImplementedError`` naming the training slice it waits for
-(``decoder.training_waits_for``).
+mode, then ``chunked_ce_loss``.  Every family trains.
 """
 
 from __future__ import annotations
@@ -112,7 +110,6 @@ def _build_decoder_model(cfg: ModelConfig, device: torch.device) -> Model:
         return decoder.init_decoder(generator, cfg, device)
 
     def train_loss(params, batch):
-        decoder.refuse_training(cfg)
         x = common.embed(params["embed"], cfg, batch["tokens"])
         x, _ = decoder.decoder_stack(params, cfg, x, mode="train",
                                      ctx=_ctx_of(cfg, batch))

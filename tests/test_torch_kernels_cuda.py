@@ -373,8 +373,87 @@ def test_rwkv_lanes_are_the_wrappers(card):
     from repro_torch.kernels import _build
     from repro_torch.kernels import rwkv_scan as rs
     lib = _build.load("rwkv_scan")
-    assert (lib.synergai_rwkv_lanes(), lib.synergai_rwkv_cols()) == (
-        rs.LANES, rs.COLS)
+    assert (lib.synergai_rwkv_lanes(), lib.synergai_rwkv_cols(),
+            lib.synergai_rwkv_chunk()) == (rs.LANES, rs.COLS, rs.CHUNK)
+    assert _build.load("rwkv_scan_bwd").synergai_rwkv_bwd_chunk() == rs.CHUNK
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 1000, 8, 64), (1, 64, 2, 32),
+                                      (3, 129, 5, 16), (2, 1, 4, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_kernel_writes_the_plain_chunk_states(card, B, S, H, hd, dtype):
+    """With ``ckpt`` the kernel writes the states before steps 0, 64, ...
+    bit-equal to the plain version's, and y and the end state are the bits
+    it gives without them."""
+    from repro_torch.kernels import rwkv_scan as rs
+    ins, state = chip_smoke.rwkv_inputs(B, S, H, hd, dtype, S + 3, True)
+    ck, ck_plain = (torch.full((B, H, rs.n_chunks(S), hd, hd), float("nan"),
+                               device="cuda") for _ in range(2))
+    y, s = rs._scan(*ins, state, None, ck)
+    rs.rwkv_scan_plain(*ins, state, ckpt=ck_plain)
+    y0, s0 = rs.rwkv_scan(*ins, state)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, ck_plain)
+    assert torch.equal(y, y0) and torch.equal(s, s0)
+
+
+# the WKV backward: kernel and plain version do the same f32 roundings in
+# the same order (sums over j as the adjacent pairwise tree, over i as the
+# forward's tree), so all five outputs are equal bit for bit
+@pytest.mark.parametrize("B,S,H,hd,with_state", chip_smoke.RWKV_BWD_HOLDS
+                         + ((3, 130, 5, 16, True), (1, 77, 4, 32, False)))
+def test_rwkv_backward_kernel_matches_plain_version(card, B, S, H, hd,
+                                                    with_state):
+    r = chip_smoke.hold_rwkv_bwd(B, S, H, hd, with_state, 3.35e12)
+    assert r["exact"] and r["repeat_bit_identical"]
+
+
+def test_rwkv_backward_takes_zero_steps_without_a_launch(card):
+    from repro_torch.kernels import rwkv_scan as rs
+    (r, k, v, w, _), state = chip_smoke.rwkv_inputs(2, 0, 4, 64,
+                                                    torch.float32, 0, True)
+    ckpt = torch.empty((2, 4, 0, 64, 64), device="cuda")
+    before = rs.rwkv_scan_bwd.launches
+    dr, dk, dv, dw, ds0 = rs.rwkv_scan_bwd(r, k, v, w, ckpt, r, state)
+    assert rs.rwkv_scan_bwd.launches == before
+    assert dr.shape == (2, 0, 4, 64) and torch.equal(ds0, state)
+    with pytest.raises(TypeError, match="takes float32"):
+        b = r.to(torch.bfloat16)
+        rs.rwkv_scan_bwd(b, b, b, b, ckpt, b)
+    with pytest.raises(ValueError, match="ds_end must be"):
+        rs.rwkv_scan_bwd(r, k, v, w, ckpt, r, state.cpu())
+
+
+def test_rwkv_gradient_launches_both_kernels(card):
+    """Under grad, ``rwkv_scan`` on card tensors goes through
+    ``RwkvScanFn``: one forward launch with the bits of a launch without a
+    gradient, one backward launch; the grads are those of the same
+    Function on the plain versions (patched in where it launches)."""
+    from repro_torch.kernels import rwkv_scan as rs
+    ins, state = chip_smoke.rwkv_inputs(2, 300, 4, 64, torch.float32, 5,
+                                        True)
+    g = torch.Generator().manual_seed(6)
+    dy = torch.randn((2, 300, 4, 64), generator=g).cuda()
+    ds = torch.randn((2, 4, 64, 64), generator=g).cuda()
+    runs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in ins + [state]]
+        before = (rs.rwkv_scan.launches, rs.rwkv_scan_bwd.launches)
+        with chip_smoke.patched(chip_smoke.attention_plain_grad()
+                                if plain else {}):
+            y, end = rs.rwkv_scan(*leaves)
+            grads = torch.autograd.grad((y, end), leaves, (dy, ds))
+        torch.cuda.synchronize()
+        moved = (rs.rwkv_scan.launches - before[0],
+                 rs.rwkv_scan_bwd.launches - before[1])
+        assert moved == ((0, 0) if plain else (1, 1))
+        runs.append((y.detach(), end.detach(), grads))
+    y0, end0 = rs.rwkv_scan(*ins, state)
+    assert torch.equal(runs[0][0], y0) and torch.equal(runs[0][1], end0)
+    for a, b in zip(runs[0], runs[1]):
+        for x, z in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, z)
 
 
 def test_rwkv_kernel_takes_zero_steps_without_a_launch(card):
@@ -741,21 +820,13 @@ def test_flash_gradient_on_the_card_runs_the_backward_kernel(no_tf32, dtype):
 
 def test_kernels_without_a_backward_refuse_gradients(card):
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import rwkv_scan as rs
     q, k, v = _attn_inputs((1, 1, 4, 64), (1, 8, 2, 64), torch.float32, 1)
-    r, kk, vv, w = (torch.rand((1, 4, 2, 16), device="cuda")
-                    for _ in range(4))
-    u = torch.zeros((2, 16), device="cuda")
-    calls = {"decode_attention": lambda t: da.decode_attention(t, k, v, 8),
-             "rwkv_scan": lambda t: rs.rwkv_scan(t, kk, vv, w, u)}
-    firsts = {"decode_attention": q, "rwkv_scan": r}
-    for name, call in calls.items():
-        leaf = firsts[name].clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match="training slice"):
-            call(leaf)
-        with torch.no_grad():
-            call(leaf)             # no gradient asked for: the kernel runs
-        call(firsts[name])         # no input requires grad
+    leaf = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        da.decode_attention(leaf, k, v, 8)
+    with torch.no_grad():
+        da.decode_attention(leaf, k, v, 8)   # no gradient asked for: runs
+    da.decode_attention(q, k, v, 8)          # no input requires grad
 
 
 def test_dense_model_trains_on_the_card_like_the_cpu(no_tf32):
@@ -828,6 +899,51 @@ def test_hybrid_and_vlm_models_train_on_the_card_like_the_cpu(no_tf32, arch):
     flash = sum(g.n for g in build_layout(cfg) if g.spec.kind != "cross")
     assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) \
         == (before[0] + 2 * flash, before[1] + flash)
+    (loss, got), (want_loss, want) = runs
+    assert abs(loss - want_loss) <= 1e-5 * want_loss
+    for key, bound in (("grad", 1e-4), ("m", 1e-4), ("v", 2e-4)):
+        for a, c in zip(got[key], want[key]):
+            assert float((a - c).abs().max()) <= bound * float(
+                c.abs().max()), key
+
+
+def test_rwkv_model_trains_on_the_card_like_the_cpu(no_tf32):
+    """The reduced rwkv6 (head dim 16), remat on, at S = 128 (two chunk
+    states), one f32 step on the card: the WKV forward 2 and its backward 1
+    a layer, no other kernel; the loss within 1e-5 and every grad and m
+    within 1e-4 and v within 2e-4 (quadratic in the grad) of its max |CPU|
+    of the CPU run's, which runs the plain versions."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_update
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = reduced(get_config("rwkv6-1.6b"), remat=True)
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 129),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    before = (rs.rwkv_scan.launches, rs.rwkv_scan_bwd.launches,
+              fa.flash_attention.launches)
+    runs = []
+    for model, p, b in ((gpu, _to(params, gpu.device), _to(batch, gpu.device)),
+                        (cpu, params, batch)):
+        loss, grads = loss_and_grads(model, p, b)
+        _, opt, _ = adamw_update(opt_cfg, p, grads, init_opt_state(p))
+        runs.append((float(loss), {
+            key: [t.cpu() for t in tree_leaves(tree)] for key, tree in
+            (("grad", grads), ("m", opt["m"]), ("v", opt["v"]))}))
+    L = cfg.n_layers
+    assert (rs.rwkv_scan.launches, rs.rwkv_scan_bwd.launches,
+            fa.flash_attention.launches) == (before[0] + 2 * L,
+                                             before[1] + L, before[2])
     (loss, got), (want_loss, want) = runs
     assert abs(loss - want_loss) <= 1e-5 * want_loss
     for key, bound in (("grad", 1e-4), ("m", 1e-4), ("v", 2e-4)):

@@ -21,7 +21,6 @@ from repro_torch.configs.base import reduced as t_reduced
 from repro_torch.configs.registry import get_config as t_get_config
 from repro_torch.models import common
 from repro_torch.models.convert import from_jax, to_torch
-from repro_torch.models.decoder import decoder_stack
 from repro_torch.models.registry import build_model
 from repro_torch.serving.kvcache import pad_cache
 
@@ -249,21 +248,6 @@ def test_rwkv_decode_writes_its_cache_in_place():
     for key, (ptr, old) in before.items():
         assert out[0][key].data_ptr() == ptr, key
         assert not torch.equal(out[0][key], old), key
-
-
-@pytest.mark.parametrize("arch,waits_for", [
-    ("rwkv6-1.6b", "the RWKV training slice")])
-def test_families_of_later_slices_raise(arch, waits_for):
-    """Every family serves, and every family but RWKV trains
-    (``tests/test_torch_train.py``); RWKV's ``train_loss`` and
-    ``mode="train"`` raise naming the training slice it waits for."""
-    model = build_model(t_reduced(t_get_config(arch)), device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=waits_for):
-        model.train_loss(params, {})
-    x = torch.zeros((1, 4, model.cfg.d_model))
-    with pytest.raises(NotImplementedError, match=waits_for):
-        decoder_stack(params, model.cfg, x, mode="train")
 
 
 def test_to_torch_keeps_bfloat16_bits():

@@ -25,7 +25,7 @@ from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import reduced as t_reduced
 from repro_torch.configs.registry import get_config as t_get_config
 from repro_torch.kernels import moe_routing as mr
-from repro_torch.models import decoder, layers
+from repro_torch.models import layers
 from repro_torch.models.convert import to_torch
 from repro_torch.models.registry import build_model
 from repro_torch.training.train_step import loss_and_grads
@@ -305,13 +305,11 @@ def test_mla_sublayer_trains_as_jax(S):
 
 @pytest.mark.parametrize("arch", [PHI, DEEPSEEK])
 def test_moe_families_train_and_remat_recomputes_the_same_routing(arch):
-    """``training_waits_for`` is None for both MoE families, and remat
-    gives the loss and every grad of the plain run bit for bit: the
-    recomputed router forward picks the same experts.  With remat the
-    router runs twice a layer (the forward and its recomputation), its
-    backward once."""
+    """Both MoE families train, and remat gives the loss and every grad of
+    the plain run bit for bit: the recomputed router forward picks the same
+    experts.  With remat the router runs twice a layer (the forward and its
+    recomputation), its backward once."""
     cfg = t_reduced(t_get_config(arch))
-    assert decoder.training_waits_for(cfg) is None
     model = build_model(cfg, device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     toks = torch.randint(0, cfg.vocab, (2, 33),

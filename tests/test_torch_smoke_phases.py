@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s MLA, VLM, hybrid and encoder-decoder serving phases
-(4d-4g) and its training phases (5a-5f) rehearsed on the CPU at the reduced
+(4d-4g) and its training phases (5a-5g) rehearsed on the CPU at the reduced
 configs' size.
 
 The phases are the functions the card run calls (``serve_mla``,
@@ -15,9 +15,9 @@ and decode attention on the self layers) and their parity holds then run as
 on the card.  The training phases (``train_cell``) run three steps with
 remat on, so each step launches flash twice a layer (the forward and its
 recomputation) and its backward once, counted by mask on seamless-m4t, and
-the router likewise on the MoE layers (MLA's attention launches neither
-flash kernel, nor do the VLM's cross layers); their holds (i)-(iii) run as
-on the card."""
+the router likewise on the MoE layers and the WKV scan on the RWKV layers
+(MLA's attention launches neither flash kernel, nor do the VLM's cross
+layers); their holds (i)-(iii) run as on the card."""
 
 import dataclasses
 import importlib.util
@@ -66,16 +66,19 @@ def rehearsal(monkeypatch):
     # patched the plain version in over its launch (``_launch_forward``,
     # ``_launch``)
     launch_forward, launch_routing = fa._launch_forward, mr._launch
+    launch_rwkv = rs._launch
     forward_launches = {"flash_attention":
                         lambda: fa._launch_forward is launch_forward,
-                        "moe_routing": lambda: mr._launch is launch_routing}
+                        "moe_routing": lambda: mr._launch is launch_routing,
+                        "rwkv_scan": lambda: rs._launch is launch_rwkv}
     for module, name, homes in (
             (fa, "flash_attention", [common]),
             (fa, "flash_attention_bwd", []),
             (da, "decode_attention", [common]),
             (mr, "moe_routing", [layers]),
             (mr, "moe_routing_bwd", []),
-            (rs, "rwkv_scan", [layers])):
+            (rs, "rwkv_scan", [layers]),
+            (rs, "rwkv_scan_bwd", [])):
         fn = counting(getattr(module, name),
                       forward_launches.get(name, lambda: True))
         for home in [module] + homes:
@@ -177,7 +180,8 @@ def test_train_dense_phase_runs_on_the_cpu(rehearsal, capsys):
                                                   resume=True, device="cpu")
     assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
                       "decode_attention": 0, "moe_routing": 0,
-                      "moe_routing_bwd": 0, "rwkv_scan": 0}
+                      "moe_routing_bwd": 0, "rwkv_scan": 0,
+                      "rwkv_scan_bwd": 0}
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3
     for tag in ("train_loss_hold ", "train_profile ", "training ",
@@ -195,7 +199,8 @@ def test_train_encdec_phase_runs_on_the_cpu(rehearsal, capsys):
     totals, _, _ = chip_smoke.train_cell(cfg, 2, 32, f32, device="cpu")
     assert totals == {"flash_attention": 36, "flash_attention_bwd": 18,
                       "decode_attention": 0, "moe_routing": 0,
-                      "moe_routing_bwd": 0, "rwkv_scan": 0}
+                      "moe_routing_bwd": 0, "rwkv_scan": 0,
+                      "rwkv_scan_bwd": 0}
     out = capsys.readouterr().out
     assert out.count('"forward": {"causal": 4, "non_causal": 8}, '
                      '"backward": {"causal": 2, "non_causal": 4}') == 3
@@ -212,7 +217,8 @@ def test_train_moe_phase_runs_on_the_cpu(rehearsal, capsys):
                                                device="cpu", full_layers=32)
     assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
                       "decode_attention": 0, "moe_routing": 12,
-                      "moe_routing_bwd": 6, "rwkv_scan": 0}
+                      "moe_routing_bwd": 6, "rwkv_scan": 0,
+                      "rwkv_scan_bwd": 0}
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3 and "2 of 32 layers" in out
     for tag in ("train_loss_hold ", "train_profile ", "train_f32_step ",
@@ -232,7 +238,8 @@ def test_train_mla_phase_runs_on_the_cpu(rehearsal, capsys):
                                          f32_hold="grads", full_layers=60)
     assert totals == {"flash_attention": 0, "flash_attention_bwd": 0,
                       "decode_attention": 0, "moe_routing": 6,
-                      "moe_routing_bwd": 3, "rwkv_scan": 0}
+                      "moe_routing_bwd": 3, "rwkv_scan": 0,
+                      "rwkv_scan_bwd": 0}
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3 and "1 of 60 layers" in out
     assert "train_f32_grads " in out and "train_f32_step " not in out
@@ -250,7 +257,8 @@ def test_train_hybrid_phase_runs_on_the_cpu(rehearsal, capsys):
                                                profile_layers=1)
     assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
                       "decode_attention": 0, "moe_routing": 0,
-                      "moe_routing_bwd": 0, "rwkv_scan": 0}
+                      "moe_routing_bwd": 0, "rwkv_scan": 0,
+                      "rwkv_scan_bwd": 0}
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3
     for tag in ("train_loss_hold ", "train_f32_step ", '"profiled_layers": 1'):
@@ -271,10 +279,33 @@ def test_train_vlm_phase_runs_on_the_cpu(rehearsal, capsys):
                                                full_layers=40)
     assert totals == {"flash_attention": 12, "flash_attention_bwd": 6,
                       "decode_attention": 0, "moe_routing": 0,
-                      "moe_routing_bwd": 0, "rwkv_scan": 0}
+                      "moe_routing_bwd": 0, "rwkv_scan": 0,
+                      "rwkv_scan_bwd": 0}
     out = capsys.readouterr().out
     assert out.count("train_step ") == 3 and "5 of 40 layers" in out
     assert "3 gated cross layers (gates 0.5)" in out
     assert "train_f32_step " in out and profile["arch"] == cfg.name
     assert chip_smoke.vlm_train_cut(get_config("llama-3.2-vision-11b")) == 20
     assert '"20": 64.955007072' in capsys.readouterr().out
+
+
+def test_train_rwkv_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5g on the reduced rwkv6 in bf16 with remat (2 layers, head dim
+    16) at S = 128, where the scan saves two chunk states: each of 3 steps
+    launches the WKV scan 2 x 2 times and its backward 2 times, nothing
+    else; holds (i) and (ii) pass, the plain runs launching nothing; the
+    profiled step splits the WKV kernels' device time from the rest."""
+    cfg, f32 = train_configs("rwkv6-1.6b")
+    totals, profile, _ = chip_smoke.train_cell(cfg, 2, 128, f32,
+                                               device="cpu")
+    assert totals == {"flash_attention": 0, "flash_attention_bwd": 0,
+                      "decode_attention": 0, "moe_routing": 0,
+                      "moe_routing_bwd": 0, "rwkv_scan": 12,
+                      "rwkv_scan_bwd": 6}
+    out = capsys.readouterr().out
+    assert out.count("train_step ") == 3
+    for tag in ("train_loss_hold ", "train_profile ", "train_f32_step "):
+        assert tag in out, tag
+    assert profile["arch"] == cfg.name and profile["layers"] == 2
+    assert {"wkv_forward", "wkv_backward"} <= set(
+        profile["device_ms_by_kind"])

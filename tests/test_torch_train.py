@@ -41,7 +41,7 @@ from repro_torch.training.train_step import (init_train_state,
 
 TRAINED = ["qwen3-4b", "gemma-2b", "h2o-danube-1.8b", "qwen3-32b",
            "seamless-m4t-medium", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
-           "hymba-1.5b", "llama-3.2-vision-11b"]
+           "hymba-1.5b", "llama-3.2-vision-11b", "rwkv6-1.6b"]
 REL = 1e-5
 # the VLM's cross gates in both trees: the init's 0 would multiply the
 # whole cross path by tanh(0) = 0, and every cross weight's grad with it
@@ -115,10 +115,11 @@ def tbatch(batch):
 
 
 # (arch, remat, S): every trained family with remat off and on at S = 32
-# (the JAX attention naive, the loss in one piece, the Mamba scan flat), and
-# at S = 1,024 (the JAX chunked flash attention, MLA's on the chunked path,
-# chunked_ce_loss's chunked branch; hymba's reduced 32-wide window and the
-# Mamba scan's chunked branch)
+# (the JAX attention naive, the loss in one piece, the Mamba and WKV scans
+# flat), and at S = 1,024 (the JAX chunked flash attention, MLA's on the
+# chunked path, chunked_ce_loss's chunked branch; hymba's reduced 32-wide
+# window and the Mamba scan's chunked branch; the JAX WKV scan's chunked
+# branch against the port's 16 chunk states)
 LOSS_CASES = ([(arch, remat, 32) for arch in TRAINED
                for remat in (False, True)]
               + [("qwen3-4b", True, 1024), ("gemma-2b", False, 1024),
@@ -127,7 +128,7 @@ LOSS_CASES = ([(arch, remat, 32) for arch in TRAINED
                  ("seamless-m4t-medium", True, 1024),
                  ("phi3.5-moe-42b-a6.6b", True, 1024),
                  ("deepseek-v2-236b", False, 1024),
-                 ("hymba-1.5b", True, 1024)])
+                 ("hymba-1.5b", True, 1024), ("rwkv6-1.6b", True, 1024)])
 
 
 @pytest.mark.parametrize("arch,remat,S", LOSS_CASES)
@@ -262,12 +263,37 @@ def test_adamw_keeps_bf16_params_and_slices_give_the_same_bits(monkeypatch):
 # the train step
 
 
+def noise_floor(jstep, jstate, batches):
+    """For each step, each metric's relative move of the JAX trajectory
+    when the initial params are perturbed by 1e-7 relative (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    moved = dict(jstate, params=jax.tree.map(
+        lambda a: (a * (1 + 1e-7 * rng.standard_normal(a.shape))).astype(
+            a.dtype), jstate["params"]))
+    floor = []
+    for batch in batches:
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        jstate, m = jstep(jstate, jb)
+        moved, mm = jstep(moved, jb)
+        floor.append({k: abs(float(mm[k]) - float(m[k])) / abs(float(m[k]))
+                      for k in ("loss", "grad_norm", "lr")})
+    return floor
+
+
 @pytest.mark.parametrize("arch,accum_steps", [
     ("h2o-danube-1.8b", 1), ("h2o-danube-1.8b", 2),
     ("phi3.5-moe-42b-a6.6b", 1), ("deepseek-v2-236b", 2),
-    ("hymba-1.5b", 1), ("llama-3.2-vision-11b", 1)],
-    ids=["1", "2", "moe-1", "mla-2", "hymba-1", "vlm-1"])
+    ("hymba-1.5b", 1), ("llama-3.2-vision-11b", 1), ("rwkv6-1.6b", 1)],
+    ids=["1", "2", "moe-1", "mla-2", "hymba-1", "vlm-1", "rwkv-1"])
 def test_train_step_matches_jax_over_three_steps(arch, accum_steps):
+    """Three steps of ``make_train_step`` against the JAX step from the same
+    state and batches: loss, grad norm and lr within ``REL`` at each step.
+    The reduced random rwkv6 is ill-conditioned: JAX's own trajectory moves
+    by more than ``REL`` (its grad norm by ~1e-4) when its initial params
+    are perturbed by one f32 rounding, 1e-7 relative (``noise_floor``).
+    So that case is held within the larger of ``REL`` and its reference's
+    own move at that step, the way the card run holds hymba's bf16 logits
+    to the plain run's own bf16 noise."""
     jcfg, jm, tcfg, tm = both(arch)
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=20)
     jstate = jax.tree.map(np.asarray,
@@ -278,15 +304,18 @@ def test_train_step_matches_jax_over_three_steps(arch, accum_steps):
                                   accum_steps=accum_steps))
     step = make_train_step(tm, optimizer.AdamWConfig(**opt),
                            accum_steps=accum_steps)
-    for i in range(3):
-        batch = batch_of(jcfg, 4, 16, seed=10 + i)
+    batches = [batch_of(jcfg, 4, 16, seed=10 + i) for i in range(3)]
+    floor = (noise_floor(jstep, jstate, batches) if jcfg.family == "ssm"
+             else None)
+    for i, batch in enumerate(batches):
         jstate, jmetrics = jstep(jstate, {k: jnp.asarray(v)
                                           for k, v in batch.items()})
         state, metrics = step(state, tbatch(batch))
         for key in ("loss", "grad_norm", "lr"):
+            rtol = max(REL, floor[i][key]) if floor else REL
             np.testing.assert_allclose(float(metrics[key]),
-                                       float(jmetrics[key]), rtol=REL,
-                                       err_msg=key)
+                                       float(jmetrics[key]), rtol=rtol,
+                                       err_msg=f"{key} step {i} {floor}")
     want = jax_paths({"params": jstate["params"], "opt": jstate["opt"]})
     got = dict(tree_leaves_with_paths(state))
     assert set(got) == set(want)
@@ -450,11 +479,11 @@ def test_the_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 def test_the_launcher_trains_the_encoder_decoder_and_refuses_the_rest():
-    for arch in ("seamless-m4t-medium", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
-                 "llama-3.2-vision-11b"):
+    """Every other family trains through the launcher, RWKV6 too (at
+    S = 128, where its scan saves two chunk states); none is refused."""
+    for arch, seq in (("seamless-m4t-medium", 8), ("phi3.5-moe-42b-a6.6b", 8),
+                      ("hymba-1.5b", 8), ("llama-3.2-vision-11b", 8),
+                      ("rwkv6-1.6b", 128)):
         out = launcher.main(["--arch", arch, "--device", "cpu", "--steps",
-                             "2", "--batch", "2", "--seq", "8"])
+                             "2", "--batch", "2", "--seq", str(seq)])
         assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
-    with pytest.raises(NotImplementedError, match="RWKV training slice"):
-        launcher.main(["--arch", "rwkv6-1.6b", "--device", "cpu", "--steps",
-                       "1"])
