@@ -78,7 +78,8 @@ Phases, in order; any failure exits non-zero:
        alone) milliseconds, the bound by operations (10 hd flops a visible
        pair);
    (i) the router backward (``moe_routing_bwd``, three kernels a call where
-       T > ``DW_CHUNK``) against ``moe_routing_bwd_plain`` at phi3.5-moe's
+       T > ``DW_CHUNK``, else two, held in the profiler) against
+       ``moe_routing_bwd_plain`` at phi3.5-moe's
        training shape [T, D, E, k] = [8192, 4096, 16, 2], deepseek-v2's
        [2048, 5120, 160, 6], a ragged [1000, 4000, 16, 2], a decode step's
        [4, 4096, 16, 2], an underflowing probability and tied experts, x in
@@ -86,17 +87,21 @@ Phases, in order; any failure exits non-zero:
        order), two calls bit-identical; the kernel's, its kernels' and the
        plain version's milliseconds and the bound (3 x 2 T D E f32
        operations, or the bytes); no one PyTorch call computes it;
-   (j) the WKV backward (``rwkv_scan_bwd``, one kernel a call) against
+   (j) the WKV backward (``rwkv_scan_bwd``, one kernel a call, a
+       thread-block cluster of ``rwkv_scan.bwd_split`` CTAs a head) against
        ``rwkv_scan_bwd_plain`` at rwkv6's training shape [B, S, H, hd] =
        [2, 4096, 32, 64] from zeros, a ragged last chunk [2, 1000, 8, 64],
        [2, 333, 8, 16], [1, 515, 2, 64] from a random state with a nonzero
-       end-state cotangent, exactly one chunk [1, 64, 2, 32] and one step
-       [2, 1, 4, 64] (from a state): dr, dk, dv, dw and d state_0 bit-equal
-       (the same roundings in the same order), two calls bit-identical, one
-       ``rwkv_scan_bwd_kernel`` a call in the profiler; the kernel's and the
-       plain version's milliseconds and the bound (``RWKV_BWD_OPS`` hd^2
-       f32 operations a step and head, or the bytes); no PyTorch call
-       computes it; ``rwkv_scan.CHUNK`` is both kernels' own;
+       end-state cotangent, exactly one chunk [1, 64, 2, 32], one step
+       [2, 1, 4, 64] (from a state) and three shapes that reach the other
+       splits: dr, dk, dv, dw and d state_0 bit-equal (the same roundings
+       in the same order) at every split the wrapper can pick, two calls
+       bit-identical, one ``rwkv_scan_bwd_kernel`` a call in the profiler;
+       the kernel's and the plain version's milliseconds and the bound
+       (``RWKV_BWD_OPS`` hd^2 f32 operations a step and head, or the
+       bytes); no PyTorch call computes it; ``rwkv_scan.CHUNK`` is both
+       kernels' own, and ``BWD_STEPS``, ``BWD_LAYOUT`` and the splits are
+       the backward kernel's;
 3. the scheduling path at full size, on the 10,000-job MMPP scenario over
    the 64-pool fleet ``synth_fleet(8, 28, 28)``: (a) job mode through v1,
    (b) batched with streaming deadlines through v2, and the device-resident
@@ -366,10 +371,14 @@ RWKV_REL = 1e-5
 # the WKV backward (B, S, H, hd, from a random state with a nonzero
 # end-state cotangent): rwkv6's training shape from zeros, a ragged last
 # chunk, the tests' reduced head dim, a random state over few heads,
-# exactly one chunk, one step; held bit for bit
+# exactly one chunk, one step, and shapes that reach the kernel's other
+# column splits (hd 64 over 4 CTAs, hd 32 over 1 and 2); held bit for bit.
+# Main checks that every split the wrapper can pick is among them
 RWKV_BWD_HOLDS = ((2, 4096, 32, 64, False), (2, 1000, 8, 64, False),
                   (2, 333, 8, 16, False), (1, 515, 2, 64, True),
-                  (1, 64, 2, 32, False), (2, 1, 4, 64, True))
+                  (1, 64, 2, 32, False), (2, 1, 4, 64, True),
+                  (1, 256, 32, 64, True), (2, 130, 64, 32, False),
+                  (1, 100, 64, 32, True))
 # the backward's operations a step and (batch, head): the recomputed state
 # (3 hd^2), four products (4), the G update (3) and four sums (~4)
 RWKV_BWD_OPS = 14
@@ -1999,8 +2008,9 @@ def hold_rwkv_bwd(B, S, H, hd, with_state, rate):
                          f"{device}")
     bound_ms, bound_by = rwkv_bwd_bound(B, S, H, hd, with_state, rate)
     big = B * S * H > 100_000      # the plain loop takes seconds here
+    split = rs.bwd_split(B, H, hd)
     r = {"max_abs_err": err, "exact": True, "repeat_bit_identical": True,
-         "kernels_per_call": device,
+         "split": split, "ctas": B * H * split, "kernels_per_call": device,
          "ms": time_ms(kernel, reps=5, batch=2),
          "device_ms": device_ms(kernel, "rwkv_scan_bwd_kernel", reps=5),
          "plain_ms": time_ms(lambda: rs.rwkv_scan_bwd_plain(*args),
@@ -2130,9 +2140,11 @@ def routing_bwd_inputs(T, D, E, dtype, seed, case="random", device="cuda"):
 
 def hold_routing_bwd(T, D, E, top_k, case, dtype_name, rate):
     """``moe_routing_bwd`` against ``moe_routing_bwd_plain`` on the same
-    card inputs, dx and dW bit for bit, two calls bit-identical, and the
-    times: per call, on the device (its three kernels, each one's too) and
-    the plain version's; no one PyTorch call computes the function.  The
+    card inputs, dx and dW bit for bit, two calls bit-identical, its
+    launches a call (the token and dW kernels, and the merge where T >
+    ``DW_CHUNK``: the runtime's launches and the profiler's names), and the
+    times: per call, on the device (its kernels, each one's too) and the
+    plain version's; no one PyTorch call computes the function.  The
     bound: 3 x 2 T D E f32 operations (the logits again, dx, dW) or the
     bytes."""
     import torch
@@ -2156,12 +2168,18 @@ def hold_routing_bwd(T, D, E, top_k, case, dtype_name, rate):
             f"repeat bit-identical {repeat}, finite {finite}, max abs err "
             f"dx {float((dx.float() - pdx.float()).abs().max())} dW "
             f"{float((dw - pdw).abs().max())}")
+    want = 3 if T > mr.DW_CHUNK else 2
+    device, api = kernels_per_call(lambda: mr.moe_routing_bwd(x, w, top_k,
+                                                              dg), reps=5)
+    if api != want or any("moe_routing_bwd_" not in name for name in device):
+        raise SystemExit(f"FAIL {label}: {api} launches a call (the design "
+                         f"makes {want}), kernels {device}")
     # x, W and dg read, dx and dW written, once each
     nbytes = 2 * T * D * x.element_size() + 2 * D * E * 4 + T * E * 4
     bound_ms, bound_by = attn_bound(6 * T * D * E, nbytes, "float32", rate)
     by_kernel = {}
     r = {"max_abs_err": max_abs_err((dx, dw), (pdx, pdw)), "exact": True,
-         "repeat_bit_identical": True,
+         "repeat_bit_identical": True, "kernels_per_call": device,
          "ms": time_ms(lambda: mr.moe_routing_bwd(x, w, top_k, dg)),
          "device_ms": device_ms(lambda: mr.moe_routing_bwd(x, w, top_k, dg),
                                 "moe_routing_bwd_", by_name=by_kernel),
@@ -3734,12 +3752,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = phase_done("2i (router backward)", t_phase)
 
-    # 2j. the WKV backward against its plain version, bit for bit
+    # 2j. the WKV backward against its plain version, bit for bit, at
+    # every column split the wrapper can pick
+    bwd_lib = _build.load("rwkv_scan_bwd")
     if (_build.load("rwkv_scan").synergai_rwkv_chunk(),
-            _build.load("rwkv_scan_bwd").synergai_rwkv_bwd_chunk()) != (
-                rs.CHUNK, rs.CHUNK):
+            bwd_lib.synergai_rwkv_bwd_chunk()) != (rs.CHUNK, rs.CHUNK):
         raise SystemExit("FAIL rwkv_scan_bwd: the kernels' chunk is not "
                          "rwkv_scan.CHUNK")
+    for hd in rs.HEAD_DIMS:
+        splits = rs.bwd_splits(hd)
+        if ((bwd_lib.synergai_rwkv_bwd_lanes(hd),
+             bwd_lib.synergai_rwkv_bwd_cols(hd)) != rs.BWD_LAYOUT[hd]
+                or (bwd_lib.synergai_rwkv_bwd_min_split(hd),
+                    bwd_lib.synergai_rwkv_bwd_max_split(hd)) != (
+                        splits[0], splits[-1])
+                or bwd_lib.synergai_rwkv_bwd_steps() != rs.BWD_STEPS):
+            raise SystemExit(f"FAIL rwkv_scan_bwd: the kernel's layout or "
+                             f"splits at hd {hd} are not rwkv_scan's")
+        held = {rs.bwd_split(B, H, hd_) for B, _, H, hd_, _ in
+                RWKV_BWD_HOLDS if hd_ == hd}
+        if held != set(splits):
+            raise SystemExit(f"FAIL rwkv_scan_bwd: RWKV_BWD_HOLDS reach the "
+                             f"splits {sorted(held)} of {splits} at hd {hd}")
     rwkv_bwd_holds = {shape: hold_rwkv_bwd(*shape, rate)
                       for shape in RWKV_BWD_HOLDS}
     t_phase = phase_done("2j (WKV backward)", t_phase)

@@ -23,7 +23,8 @@ before every ``CHUNK``-th step (``ckpt``), so autograd keeps O(S / 64)
 states, as the JAX package's ``chunked_time_scan`` does; its backward is
 ``rwkv_scan_bwd`` (``csrc/rwkv_scan_bwd.cu``, counted by
 ``rwkv_scan_bwd.launches``; ``rwkv_scan_bwd_plain`` on the CPU), which
-recomputes each chunk's states from ``ckpt`` and steps back through it.
+recomputes each chunk's states from ``ckpt`` and steps back through it, a
+head's value columns split over ``bwd_split`` CTAs.
 Kernel and plain version do the same f32 roundings in the same order, in
 the forward and in the backward.
 """
@@ -42,10 +43,18 @@ LANES = 4            # the kernel's lanes a column group (its kLanes)
 COLS = 2             # the value columns a lane holds (its kCols)
 TARGET_CTAS = 128    # about one CTA on each of the H100's 132 SMs
 CHUNK = 64           # steps between two saved states (the kernels' kChunk)
+# the backward kernel's lane layout by head dim: (lanes a column group,
+# value columns a lane), each lane 2 rows; the steps it takes back between
+# two of its cluster's sums (its kSteps); its CTAs' warps and its clusters'
+# CTAs at most (kMaxWarps, kMaxSplit)
+BWD_LAYOUT = {16: (8, 4), 32: (16, 4), 64: (32, 4)}
+BWD_STEPS = 8
+BWD_MAX_WARPS = 8
+BWD_MAX_SPLIT = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P] * 13 + [_I] * 4 + [_P]
+_BWD_ARGTYPES = [_P] * 13 + [_I] * 5 + [_P]
 
 
 def column_split(B, H, hd):
@@ -56,6 +65,27 @@ def column_split(B, H, hd):
     while B * H * split < TARGET_CTAS and hd // (2 * split) >= min_cols:
         split *= 2
     return split
+
+
+def bwd_splits(hd):
+    """The splits the backward kernel takes at head dim ``hd``: powers of
+    two from the one that keeps a CTA within ``BWD_MAX_WARPS`` warps to the
+    one that leaves it a single warp, at most ``BWD_MAX_SPLIT``."""
+    lanes, cols = BWD_LAYOUT[hd]
+    warps = hd // (32 // lanes * cols)          # warps a head
+    split, out = max(1, warps // BWD_MAX_WARPS), []
+    while split <= min(warps, BWD_MAX_SPLIT):
+        out.append(split)
+        split *= 2
+    return tuple(out)
+
+
+def bwd_split(B, H, hd):
+    """CTAs (a thread-block cluster) per (batch, head) of the backward
+    kernel: the least split it takes that gives ``TARGET_CTAS`` CTAs, else
+    its largest."""
+    splits = bwd_splits(hd)
+    return next((s for s in splits if B * H * s >= TARGET_CTAS), splits[-1])
 
 
 def n_chunks(S):
@@ -310,8 +340,9 @@ def rwkv_scan_bwd(r, k, v, w, ckpt, dy, ds_end=None):
     end state's cotangent [B, H, hd, hd] f32 (None: zeros); contiguous, on
     one device.  Returns (dr, dk, dv, dw [B, S, H, hd], d state_0 [B, H, hd,
     hd]), all f32; dr, dk and dv without their u-terms.  Launches
-    ``csrc/rwkv_scan_bwd.cu`` on card tensors, runs ``rwkv_scan_bwd_plain``
-    on CPU tensors; S = 0 returns zeros with no launch."""
+    ``csrc/rwkv_scan_bwd.cu`` (``bwd_split`` CTAs a head) on card tensors,
+    runs ``rwkv_scan_bwd_plain`` on CPU tensors; S = 0 returns zeros with
+    no launch."""
     if not isinstance(ckpt, torch.Tensor):
         raise ValueError("rwkv_scan_bwd: ckpt must be the forward's chunk "
                          "states")
@@ -333,8 +364,8 @@ def rwkv_scan_bwd(r, k, v, w, ckpt, dy, ds_end=None):
         return (*(torch.zeros_like(r) for _ in range(4)), ds0)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    scratch = torch.empty((B * H, CHUNK, hd, hd), dtype=torch.float32,
-                          device=r.device)
+    kept = torch.empty((B * H, CHUNK // BWD_STEPS, hd, hd),
+                       dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         _build.launch("rwkv_scan_bwd", "synergai_rwkv_scan_bwd",
@@ -343,8 +374,8 @@ def rwkv_scan_bwd(r, k, v, w, ckpt, dy, ds_end=None):
                       ckpt.data_ptr(), dy.data_ptr(),
                       ds_end.data_ptr() if ds_end is not None else None,
                       dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      dw.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), B,
-                      S, H, hd, stream)
+                      dw.data_ptr(), ds0.data_ptr(), kept.data_ptr(), B, S,
+                      H, hd, bwd_split(B, H, hd), stream)
     rwkv_scan_bwd.launches += 1
     return dr, dk, dv, dw, ds0
 

@@ -375,7 +375,16 @@ def test_rwkv_lanes_are_the_wrappers(card):
     lib = _build.load("rwkv_scan")
     assert (lib.synergai_rwkv_lanes(), lib.synergai_rwkv_cols(),
             lib.synergai_rwkv_chunk()) == (rs.LANES, rs.COLS, rs.CHUNK)
-    assert _build.load("rwkv_scan_bwd").synergai_rwkv_bwd_chunk() == rs.CHUNK
+    bwd = _build.load("rwkv_scan_bwd")
+    assert bwd.synergai_rwkv_bwd_chunk() == rs.CHUNK
+    assert bwd.synergai_rwkv_bwd_steps() == rs.BWD_STEPS
+    for hd in rs.HEAD_DIMS:
+        assert (bwd.synergai_rwkv_bwd_lanes(hd),
+                bwd.synergai_rwkv_bwd_cols(hd)) == rs.BWD_LAYOUT[hd]
+        splits = rs.bwd_splits(hd)
+        assert (bwd.synergai_rwkv_bwd_min_split(hd),
+                bwd.synergai_rwkv_bwd_max_split(hd)) == (splits[0],
+                                                         splits[-1])
 
 
 @pytest.mark.parametrize("B,S,H,hd", [(2, 1000, 8, 64), (1, 64, 2, 32),

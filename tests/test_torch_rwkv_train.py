@@ -173,67 +173,133 @@ def test_ckpt_holds_the_states_at_chunk_starts(S):
         assert torch.equal(ckpt[:, :, c], want), c
 
 
-def lane_bwd(r, k, v, w, ckpt, dy, ds_end):
-    """The backward kernel's arithmetic, in torch on the CPU, in its lane
-    layout: lane t of a group holds rows i = t + LANES * m of COLS
-    adjacent columns, 32 / LANES groups a warp.  Sums over i: the lane's
-    rows as the forward's tree (m with m + M/2), then the lanes at xor
-    distances LANES/2 .. 1.  Sums over j: the pair of columns a thread
-    holds, then the column groups of a warp at xor distances 1, 2, 4 (the
-    kernel's reduce-scatter adds the same pairs), then the warps in
-    adjacent pairs."""
-    L, NC, GW = rs.LANES, rs.COLS, 32 // rs.LANES
+def lane_bwd(r, k, v, w, ckpt, dy, ds_end, split=None):
+    """The backward kernel's arithmetic, in torch on the CPU, in its layout
+    (``rs.BWD_LAYOUT``): a head's columns split over ``split`` CTAs (the
+    wrapper's ``bwd_split`` by default), lane t of a column group of L
+    lanes holding rows i = t + L m (m < M = hd / L) of NC adjacent columns,
+    32 / L groups a warp; the chunk walked back in groups of
+    ``BWD_STEPS`` steps, each group's states recomputed from the one kept
+    before it.  Sums over i: the lane's rows as the forward's tree (m with
+    m + M/2, ...), then the lanes at xor distances L/2 .. 1.  Sums over j:
+    a thread's NC columns as the adjacent tree, then the column groups of
+    a warp at xor distances 1, 2, ... (the kernel's reduce-scatter adds
+    the same pairs), then the head's warps, CTA rank by rank, as one
+    adjacent tree (the cluster's merge)."""
     B, S, H, hd = r.shape
-    M, W = hd // L, hd // NC // GW
+    L, NC = rs.BWD_LAYOUT[hd]
+    M, GW = hd // L, 32 // L
+    leaves = hd // (GW * NC)
+    split = rs.bwd_split(B, H, hd) if split is None else split
+    nw = leaves // split                              # warps a CTA
+    assert split in rs.bwd_splits(hd) and nw * split == leaves
     g = ds_end.clone()
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+
+    def step_to(s, t):
+        return (w[:, t, :, :, None] * s
+                + k[:, t, :, :, None] * v[:, t, :, None, :])
+
     for c in reversed(range(rs.n_chunks(S))):
         t0, t1 = c * rs.CHUNK, min(S, (c + 1) * rs.CHUNK)
-        states = [ckpt[:, :, c]]
+        s = ckpt[:, :, c]
+        kept = [s]                                    # before each group
         for t in range(t0, t1 - 1):
-            states.append(w[:, t, :, :, None] * states[-1]
-                          + k[:, t, :, :, None] * v[:, t, :, None, :])
-        for t in reversed(range(t0, t1)):
-            s = states[t - t0]
-            q = (g * k[:, t, :, :, None]).reshape(B, H, M, L, hd)
-            while q.shape[2] > 1:                     # a lane's own rows
-                q = q[:, :, :q.shape[2] // 2] + q[:, :, q.shape[2] // 2:]
-            x = q[:, :, 0]                            # [B, H, lane, j]
-            off = L // 2
-            while off:                                # across the lanes
-                x = x + x[:, :, [lane ^ off for lane in range(L)]]
-                off //= 2
-            dv[:, t] = x[:, :, 0]
-            for out, p in ((dr, dy[:, t, :, None, :] * s),
-                           (dk, g * v[:, t, :, None, :]), (dw, g * s)):
-                x = p.reshape(B, H, hd, W, GW, NC)
-                x = x[..., 0] + x[..., 1]             # a thread's pair
-                for bit in (1, 2, 4):                 # a warp's groups
-                    x = x + x[..., [gw ^ bit for gw in range(GW)]]
-                x = x[..., 0]                         # [B, H, i, warp]
-                while x.shape[-1] > 1:                # the warps
-                    x = x[..., 0::2] + x[..., 1::2]
-                out[:, t] = x[..., 0]
-            g = (w[:, t, :, :, None] * g
-                 + r[:, t, :, :, None] * dy[:, t, :, None, :])
+            s = step_to(s, t)
+            if (t + 1 - t0) % rs.BWD_STEPS == 0:
+                kept.append(s)
+        for q in reversed(range(len(kept))):
+            g0 = t0 + q * rs.BWD_STEPS
+            states = [kept[q]]
+            for t in range(g0, min(t1, g0 + rs.BWD_STEPS) - 1):
+                states.append(step_to(states[-1], t))
+            for t in reversed(range(g0, min(t1, g0 + rs.BWD_STEPS))):
+                s = states[t - g0]
+                x = (g * k[:, t, :, :, None]).reshape(B, H, M, L, hd)
+                while x.shape[2] > 1:                 # a lane's own rows
+                    x = (x[:, :, :x.shape[2] // 2]
+                         + x[:, :, x.shape[2] // 2:])
+                x = x[:, :, 0]                        # [B, H, lane, j]
+                off = L // 2
+                while off:                            # across the lanes
+                    x = x + x[:, :, [lane ^ off for lane in range(L)]]
+                    off //= 2
+                dv[:, t] = x[:, :, 0]
+                for out, p in ((dr, dy[:, t, :, None, :] * s),
+                               (dk, g * v[:, t, :, None, :]), (dw, g * s)):
+                    x = p.reshape(B, H, hd, split, nw, GW, NC)
+                    while x.shape[-1] > 1:            # a thread's columns
+                        x = x[..., 0::2] + x[..., 1::2]
+                    x = x[..., 0]
+                    bit = 1
+                    while bit < GW:                   # a warp's groups
+                        x = x + x[..., [gw ^ bit for gw in range(GW)]]
+                        bit *= 2
+                    x = x[..., 0].reshape(B, H, hd, leaves)  # rank, warp
+                    while x.shape[-1] > 1:            # the cluster's merge
+                        x = x[..., 0::2] + x[..., 1::2]
+                    out[:, t] = x[..., 0]
+                g = (w[:, t, :, :, None] * g
+                     + r[:, t, :, :, None] * dy[:, t, :, None, :])
     return dr, dk, dv, dw, g
 
 
-@pytest.mark.parametrize("B,S,H,hd", [(1, 64, 2, 16), (2, 130, 2, 32),
-                                      (1, 100, 2, 64), (2, 1, 1, 64),
-                                      (1, 333, 1, 16)])
-def test_kernel_order_is_the_plain_backwards(B, S, H, hd):
-    """``lane_bwd`` equals ``rwkv_scan_bwd_plain`` bit for bit (all five
-    outputs), from a start state with a nonzero end-state cotangent."""
+SHAPES = [(1, 64, 2, 16), (2, 130, 2, 32), (1, 100, 2, 64), (2, 1, 1, 64),
+          (1, 333, 1, 16)]
+
+
+def bwd_case(B, S, H, hd):
     (r, k, v, w, u, s0), (dy, ds) = case(S, hd, True, B=B, H=H)
     r, k, v, w, dy = (torch.from_numpy(a) for a in (r, k, v, w, dy))
     u, s0, ds = (torch.from_numpy(a) for a in (u, s0, ds))
     ckpt = torch.empty((B, H, rs.n_chunks(S), hd, hd))
     rs.rwkv_scan_plain(r, k, v, w, u, s0, ckpt=ckpt)
-    got = lane_bwd(r, k, v, w, ckpt, dy, ds)
-    want = rs.rwkv_scan_bwd(r, k, v, w, ckpt, dy, ds)
+    return r, k, v, w, ckpt, dy, ds
+
+
+@pytest.mark.parametrize("B,S,H,hd", SHAPES)
+def test_kernel_order_is_the_plain_backwards(B, S, H, hd):
+    """``lane_bwd`` at the split the wrapper picks equals
+    ``rwkv_scan_bwd_plain`` bit for bit (all five outputs), from a start
+    state with a nonzero end-state cotangent."""
+    args = bwd_case(B, S, H, hd)
+    got = lane_bwd(*args)
+    want = rs.rwkv_scan_bwd(*args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,S,H,hd,split", [
+    shape + (split,) for shape in SHAPES for split in rs.bwd_splits(shape[3])])
+def test_kernel_order_is_the_plain_backwards_at_every_split(B, S, H, hd,
+                                                            split):
+    """The same at every split the backward kernel takes for hd 16 (1),
+    32 (1, 2) and 64 (2, 4, 8): a CTA's columns are an aligned block, so
+    its partials are subtrees of the plain version's adjacent tree."""
+    args = bwd_case(B, S, H, hd)
+    want = rs.rwkv_scan_bwd_plain(*args)
+    for a, b in zip(lane_bwd(*args, split=split), want):
+        assert torch.equal(a, b)
+
+
+def test_the_backward_split_fills_the_card_a_warp_a_cta():
+    """At rwkv6's training shape [2, 4096, 32, 64] the backward runs >= 128
+    CTAs; every pick leaves a CTA a warp at least and ``BWD_MAX_WARPS`` at
+    most, a cluster ``BWD_MAX_SPLIT`` CTAs at most, and reaches 128 CTAs
+    where those allow it."""
+    assert 2 * 32 * rs.bwd_split(2, 32, 64) >= rs.TARGET_CTAS
+    for hd in rs.HEAD_DIMS:
+        lanes, cols = rs.BWD_LAYOUT[hd]
+        warps = hd // (32 // lanes * cols)            # warps a head
+        for BH in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            split = rs.bwd_split(1, BH, hd)
+            assert split in rs.bwd_splits(hd)
+            assert 1 <= warps // split <= rs.BWD_MAX_WARPS
+            assert split <= rs.BWD_MAX_SPLIT
+            assert BH * split >= rs.TARGET_CTAS or split == max(
+                rs.bwd_splits(hd))
+            assert split == min(rs.bwd_splits(hd)) or (
+                BH * split // 2 < rs.TARGET_CTAS)
 
 
 def test_zero_steps_give_the_end_cotangent():

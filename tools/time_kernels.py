@@ -27,17 +27,27 @@ profiler's device ms of one call, averaged over 25.
   log-sum-exp as a training step calls it (``lse`` keys);
 - ``flash_attention_bwd`` (within ``chip_smoke.BWD_REL`` of max |plain|,
   bf16 and f32) at the checkout's ``chip_smoke.FLASH_BWD_HOLDS``, fed the
-  checkout's forward output and log-sum-exp (``bwd`` keys).
+  checkout's forward output and log-sum-exp (``bwd`` keys);
+- ``rwkv_scan_bwd`` (bit for bit, all five outputs) at the checkout's
+  ``chip_smoke.RWKV_BWD_HOLDS``, fed the checkout's forward chunk states
+  (``wkv_bwd`` keys);
+- ``moe_routing_bwd`` (dx and dW bit for bit, x in bf16 and f32) at the
+  checkout's ``chip_smoke.ROUTING_BWD_HOLDS``, each of its kernels' device
+  ms beside the sum (``router_bwd`` keys).
 
-One JSON line per checkout, with the card's name and power limit.  To
-compare two commits, unpack the parent into a directory that .gitignore
-lists and give both in turns, parent first and last:
+``--only`` takes a comma-separated list of those groups (router, tick,
+decode, wkv, flash, bwd, wkv_bwd, router_bwd) and times only them.  One
+JSON line per checkout, with the card's name and power limit.  To compare
+two commits, unpack the parent into a directory that .gitignore lists and
+give both in turns, parent first and last:
 ``python3 tools/time_kernels.py build/parent . . build/parent``.
 """
 
 import json
 import subprocess
 import sys
+
+import numpy as np
 
 ROUTER = ((4, 4096, 16, 2), (1, 4096, 16, 2), (4096, 4096, 16, 2),
           (1000, 4000, 16, 2), (4096, 5120, 160, 6))
@@ -52,7 +62,11 @@ WKV = ((4, 1024, 32, 64, False), (4, 1, 32, 64, True),
        (1, 515, 2, 64, True))
 
 
-def time_checkout(root):
+GROUPS = ("router", "tick", "decode", "wkv", "flash", "bwd", "wkv_bwd",
+          "router_bwd")
+
+
+def time_checkout(root, only=GROUPS):
     sys.path[:0] = [root, root + "/src"]
     import torch
     import chip_smoke as cs
@@ -62,8 +76,12 @@ def time_checkout(root):
     from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.kernels import scheduler_score as ss
     torch.backends.cuda.matmul.allow_tf32 = False
+
+    def pick(group, items):
+        return items if group in only else ()
+
     out = {"checkout": root, "card": cs.card_line()}
-    for T, D, E, k in ROUTER:
+    for T, D, E, k in pick("router", ROUTER):
         x, w = cs.routing_inputs(T, D, E, torch.bfloat16, T + D + E)
         got, want = mr.moe_routing(x, w, k), mr.moe_routing_plain(x, w, k)
         torch.cuda.synchronize()
@@ -71,7 +89,7 @@ def time_checkout(root):
             raise SystemExit(f"{root}: router {(T, D, E, k)} differs")
         out[f"router {T},{D},{E},{k}"] = cs.device_ms(
             lambda: mr.moe_routing(x, w, k), "moe_routing_kernel")
-    for J, cap, W in TICK:
+    for J, cap, W in pick("tick", TICK):
         for energy in (False, True):
             inputs = cs.to_card(cs.messy_tick_inputs(J, cap, W, seed=J + W,
                                                      deep=energy))
@@ -88,7 +106,7 @@ def time_checkout(root):
                 score, "tick_score_kernel")
             del inputs
             torch.cuda.empty_cache()
-    for B, S, H, K, hd, k_valid in DECODE:
+    for B, S, H, K, hd, k_valid in pick("decode", DECODE):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = cs.attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype,
                                      S + hd)
@@ -102,7 +120,7 @@ def time_checkout(root):
             out[f"decode {B},{S},{H},{K},{hd},{k_valid} {dtype}"] = (
                 cs.device_ms(lambda: da.decode_attention(q, k, v, k_valid),
                              "decode_attention_"))
-    for B, S, H, hd, with_state in WKV:
+    for B, S, H, hd, with_state in pick("wkv", WKV):
         for dtype in (torch.float32, torch.bfloat16):
             ins, state = cs.rwkv_inputs(B, S, H, hd, dtype, S + hd,
                                         with_state)
@@ -114,7 +132,7 @@ def time_checkout(root):
                                  "not bit-equal")
             out[f"wkv {B},{S},{H},{hd} {dtype}"] = cs.device_ms(
                 lambda: rs.rwkv_scan(*ins, state), "rwkv_scan_kernel")
-    for B, S, H, K, hd, window, causal in cs.FLASH_HOLDS:
+    for B, S, H, K, hd, window, causal in pick("flash", cs.FLASH_HOLDS):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = cs.attn_inputs((B, S, H, hd), (B, S, K, hd), dtype,
                                      S + hd)
@@ -137,7 +155,8 @@ def time_checkout(root):
                 out[key + " lse"] = cs.device_ms(
                     lambda: fa._launch_forward(q, k, v, causal, window, True),
                     "flash_attention_kernel")
-    for B, S, H, K, hd, window, causal in getattr(cs, "FLASH_BWD_HOLDS", ()):
+    for B, S, H, K, hd, window, causal in pick(
+            "bwd", getattr(cs, "FLASH_BWD_HOLDS", ())):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = cs.attn_inputs((B, S, H, hd), (B, S, K, hd), dtype,
                                      S + hd)
@@ -162,16 +181,59 @@ def time_checkout(root):
             out[key] = cs.device_ms(bwd, "flash_attention_bwd_", reps=5)
             del q, k, v, dout, o, lse
             torch.cuda.empty_cache()
+    for B, S, H, hd, with_state in pick(
+            "wkv_bwd", getattr(cs, "RWKV_BWD_HOLDS", ())):
+        ins, state = cs.rwkv_inputs(B, S, H, hd, torch.float32, S + hd + 7,
+                                    with_state)
+        rng = np.random.default_rng(S + hd + 8)
+        dy = torch.from_numpy(rng.standard_normal(
+            (B, S, H, hd), dtype=np.float32)).cuda()
+        ds = (torch.from_numpy(rng.standard_normal(
+            (B, H, hd, hd), dtype=np.float32)).cuda() if with_state else None)
+        ckpt = torch.empty((B, H, rs.n_chunks(S), hd, hd), device="cuda")
+        rs._scan(*ins, state, None, ckpt)
+        args = (*ins[:4], ckpt, dy, ds)
+        got = rs.rwkv_scan_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(cs.exact(a, b)
+                   for a, b in zip(got, rs.rwkv_scan_bwd_plain(*args))):
+            raise SystemExit(f"{root}: wkv backward {(B, S, H, hd)} is not "
+                             "bit-equal")
+        out[f"wkv_bwd {B},{S},{H},{hd}"] = cs.device_ms(
+            lambda: rs.rwkv_scan_bwd(*args), "rwkv_scan_bwd_kernel", reps=5)
+        del got, args, ckpt, dy, ds, ins
+        torch.cuda.empty_cache()
+    for T, D, E, k, case in pick(
+            "router_bwd", getattr(cs, "ROUTING_BWD_HOLDS", ())):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, dg = cs.routing_bwd_inputs(T, D, E, dtype, T + D + E, case)
+            got = mr.moe_routing_bwd(x, w, k, dg)
+            torch.cuda.synchronize()
+            if not all(cs.exact(a, b) for a, b in zip(
+                    got, mr.moe_routing_bwd_plain(x, w, k, dg))):
+                raise SystemExit(f"{root}: router backward {(T, D, E, k)} "
+                                 f"{case} {dtype} is not bit-equal")
+            by_kernel = {}
+            key = f"router_bwd {T},{D},{E},{k} {case} {dtype}"
+            out[key] = cs.device_ms(lambda: mr.moe_routing_bwd(x, w, k, dg),
+                                    "moe_routing_bwd_", by_name=by_kernel)
+            out[key + " by kernel"] = by_kernel
     print(json.dumps(out), flush=True)
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        time_checkout(sys.argv[2])
+    args = sys.argv[1:]
+    only = GROUPS
+    if args[:1] == ["--only"]:
+        only, args = tuple(args[1].split(",")), args[2:]
+    if len(args) == 2 and args[0] == "--one":
+        time_checkout(args[1], only)
         return 0
     rc = 0
-    for root in sys.argv[1:]:
-        rc |= subprocess.run([sys.executable, __file__, "--one", root]).returncode
+    for root in args:
+        extra = ["--only", ",".join(only)] if only != GROUPS else []
+        rc |= subprocess.run([sys.executable, __file__, *extra, "--one",
+                              root]).returncode
     return rc
 
 
