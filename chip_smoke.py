@@ -109,11 +109,15 @@ Phases, in order; any failure exits non-zero:
    ``energy_weight=0.5``, (e) under ``HierarchicalSynergAI`` over three
    regions of the same fleet on ``regional_scenario``.  Each run counts its
    kernel launches (the counts set to 0 just before it), must give the same
-   ``JobResult``s as the same run on the CPU (made in a forked child while
-   the card run goes on, ``forked``), and is set beside the default
-   numpy ``SynergAI()``; the resident runs also print their per-tick
-   transfer counters (held equal to the CPU run's, ``profile_reclaims``
-   among them) and their edge energy (held equal too); (d) prints its
+   ``JobResult``s as the same run on the CPU, and is set beside the default
+   numpy ``SynergAI()``; every run's CPU and numpy runs (and 3g's host
+   policies and the paper experiments' runs off the card) are made in
+   forked children, all forked at the phase's start and run
+   ``os.cpu_count() - 2`` at a time in the card runs' order
+   (``Children``), so that they run beside the card runs; the resident
+   runs also print their per-tick transfer counters (held equal to the
+   CPU run's, ``profile_reclaims`` among them) and their edge energy (held
+   equal too); (d) prints its
    ``normalized_edge_energy`` and ``offload_fraction``, card against numpy;
    one more job-mode resident run over the first 3,000 jobs times the
    stages of a device tick;
@@ -257,6 +261,20 @@ Phases, in order; any failure exits non-zero:
    states) and 24 WKV backward calls, no flash, decode or router launch;
    holds (i) and (ii) on its first 2 layers; the fourth step profiled at
    full depth, with the WKV forward's and backward's device time;
+5h. the one-device mesh: a world-size-1 ``nccl`` group on a ``FileStore``
+   and the (1, 1) ``data x model`` mesh on the card, the active mesh while
+   the DTensor runs go on; qwen3-4b on 4 layers (2 steps), phi3.5-moe on 1
+   (1 step) and rwkv6-1.6b on 2 (1 step) trained at full width, bf16, 2 x
+   4,096, once on plain tensors and once on DTensors (params by
+   ``TRAIN_RULES``, m and v by ``opt_pspecs``, the batch by
+   ``batch_pspecs``, ``grad_shardings`` from ``opt_pspecs``): each step's
+   loss and grad norm and every param, m and v leaf after them bit-equal,
+   each kernel's launches equal; qwen3-4b on the same 4 layers served (4
+   requests of batch 4 x 1,024 and 8 decode steps) on plain tensors, on
+   DTensors (params by ``PARAM_RULES``, caches by ``cache_pspecs``) and
+   again with ``ONEHOT_CACHE_UPDATE``: every step's logits bit-equal, the
+   flash and decode-attention launches equal; the seconds a step and the
+   host's seconds of each run;
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -272,12 +290,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 import types
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 from unittest import mock
 
@@ -299,6 +318,9 @@ EXPERIMENT_SEEDS = (1, 2, 3, 4, 5)
 BASELINES = ("RR", "SRR", "LRU", "MRU", "BE")
 REPS = 25                 # timed samples per kernel (median reported)
 BATCH = 10                # launches per timed sample
+# a plain version's call above this many seconds is timed by the hold's
+# own call (the greedy walk's and the WKV backward's Python loops)
+SLOW_S = 0.1
 TIMES = ("ms", "device_ms", "plain_ms", "bound_ms")
 
 # the attention kernels (B, S, H, K, hd, window, causal): the serving
@@ -419,6 +441,10 @@ TRAIN_LOSS_REL = 1e-2
 # (relative), each leaf's grad and m (max |delta| / max |plain|); v is
 # quadratic in the grad, so a grad held at 1e-4 moves it up to 2e-4
 TRAIN_F32_REL = {"loss": 1e-5, "grad": 1e-4, "m": 1e-4, "v": 2e-4}
+# the free card memory, in multiples of the kernels' f32 run, under which
+# that run waits on the host for the plain run (whose state and
+# activations need about 1.5 more)
+F32_ROOM = 2.5
 # the router (T, D, E, top_k, case): the phi3.5 prefill (4 x 1,024 tokens),
 # one decode step, one token, a ragged shape, the deepseek-v2 prefill and
 # decode step, a probability that underflows (one logit leads by > 110) and
@@ -466,6 +492,11 @@ VLM_TRAIN_F32_LAYERS, VLM_TRAIN_ROOM_GB, CARD_GB = 5, 15.0, 80.0
 # first 2 layers (the plain scan and its backward loop over 4,096 steps,
 # ~25 us of host a launch: several seconds a layer)
 RWKV_TRAIN_F32_LAYERS = 2
+# the one-device mesh (5h): (arch, layers, steps) trained at full width on
+# 5a's batch, and the serving cell (arch, layers) with MESH_GEN decode steps
+MESH_TRAIN = (("qwen3-4b", 4, 2), ("phi3.5-moe-42b-a6.6b", 1, 1),
+              ("rwkv6-1.6b", 2, 1))
+MESH_SERVE, MESH_GEN = ("qwen3-4b", 4), 8
 
 # HBM rate by card name, bytes/s (NVIDIA data sheets)
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -877,11 +908,15 @@ def hold_kernel(name, wrapper, plain, inputs, nbytes, rate, kernel_name,
     fail unless every output is identical, and time both: ``ms`` and
     ``plain_ms`` per call with CUDA events (host overhead included where
     it exceeds the device time), ``device_ms`` the kernel alone.  ``slow``
-    times the plain version over 3 single calls (a Python loop)."""
+    times the plain version (a Python loop) over 3 single calls, or, where
+    the hold's own call of it took over ``SLOW_S``, by that call alone."""
     import torch
     out = wrapper(*inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     ref = plain(*inputs)
     torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
     if isinstance(out, torch.Tensor):
         out, ref = (out,), (ref,)
     ok = all(exact(a, b) for a, b in zip(out, ref))
@@ -890,7 +925,8 @@ def hold_kernel(name, wrapper, plain, inputs, nbytes, rate, kernel_name,
         raise SystemExit(f"FAIL {name}: kernel and plain version differ "
                          f"(max abs err {err})")
     ms = time_ms(lambda: wrapper(*inputs), batch=1 if slow else BATCH)
-    plain_ms = time_ms(lambda: plain(*inputs), *((3, 1) if slow else ()))
+    plain_ms = (ref_s * 1e3 if slow and ref_s > SLOW_S else
+                time_ms(lambda: plain(*inputs), *((3, 1) if slow else ())))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "device_ms": device_ms(lambda: wrapper(*inputs), kernel_name),
             "bound_ms": nbytes / rate * 1e3}
@@ -1001,12 +1037,13 @@ def scales(cd, rc):
     return json.dumps(profile_overlay(cd, rc.profile).scale, sort_keys=True)
 
 
-def hold_loop(label, cd, rcs, card_caches, online, cpu):
+def hold_loop(label, cd, rcs, card_caches, online, cpu, numpy=None):
     """The re-characterizer of the card run against the CPU run's (``cpu``,
     the report of ``cpu_reference``): the same refreshes and bit-equal
     overlay scales; an online run must have refreshed and reclaimed rows on
     the card.  ``rcs`` maps run -> its own re-characterizer (``None`` for a
-    stale run)."""
+    stale run); ``numpy`` is the report of ``numpy_reference`` where the
+    numpy run was made in a child (else ``rcs["numpy"]`` ran it here)."""
     if rcs["card"] is None:
         return {}
     card = rcs["card"]
@@ -1024,7 +1061,8 @@ def hold_loop(label, cd, rcs, card_caches, online, cpu):
                          f"{reclaims} profile reclaims: the refresh path did "
                          "not run")
     return {"refreshes": {"card": card.refreshes, "cpu": cpu["refreshes"],
-                          "numpy": rcs["numpy"].refreshes},
+                          "numpy": (numpy["refreshes"] if numpy
+                                    else rcs["numpy"].refreshes)},
             "last_reason": card.last_reason,
             "overlay_scales_equal_to_cpu_run": True,
             "overlay_engines": len(json.loads(scales(cd, card)))}
@@ -1103,25 +1141,103 @@ def cpu_reference(cd, jobs, fleet, serving, policy, degradations, rc):
             "scales": scales(cd, rc) if rc else None}
 
 
-def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
+def numpy_reference(cd, jobs, fleet, serving, policy, degradations, rc):
+    """The run of the default numpy ``policy`` (a forked child's work), as
+    plain data: its results, per-call schedule seconds, wall seconds, its
+    re-characterizer's refreshes, and its cluster's edge energy and offload
+    fraction (the cluster itself does not pickle)."""
+    from repro_torch.core.energy import edge_energy, offload_fraction
+    res, ticks, wall, cluster = drive(cd, jobs, fleet, serving, policy,
+                                      degradations)
+    return {"results": res, "ticks": ticks, "wall": wall,
+            "refreshes": rc.refreshes if rc else None,
+            "energy": edge_energy(cluster),
+            "offload": offload_fraction(res, cluster)}
+
+
+class Children:
+    """Forked children (``forked``) all started at the start of a phase,
+    from the main thread, that take turns: at most ``limit`` of them run at
+    once, in the order they were started (the runs the phase needs first
+    finish first); the rest wait in the child, idle.  So the host work of
+    the references runs beside the card runs instead of before them."""
+
+    def __init__(self, limit):
+        import multiprocessing
+        ctx = multiprocessing.get_context("fork")
+        self.limit = limit
+        self.turn = ctx.Condition()
+        self.next = ctx.RawValue("i", 0)
+        self.running = ctx.RawValue("i", 0)
+        self.started = 0
+
+    def start(self, fn):
+        """Fork a child for ``fn()``; returns ``forked``'s waiter."""
+        ticket = self.started
+        self.started += 1
+
+        def in_turn():
+            with self.turn:
+                self.turn.wait_for(lambda: self.next.value == ticket
+                                   and self.running.value < self.limit)
+                self.next.value += 1
+                self.running.value += 1
+                self.turn.notify_all()
+            try:
+                return fn()
+            finally:
+                with self.turn:
+                    self.running.value -= 1
+                    self.turn.notify_all()
+        return forked(in_turn)
+
+
+def start_references(children, cd, jobs, fleet, serving, make_policy,
+                     cpu_score_fn, degradations=(), make_rc=None):
+    """Start a run's CPU reference (``make_policy(cpu_score_fn(), rc)`` on
+    the kernels' plain versions) and its numpy reference
+    (``make_policy(None, rc)``) in children; returns their waiters and the
+    run's re-characterizers, one fresh from ``make_rc`` for each of the
+    numpy, card and CPU runs (``None`` without it)."""
+    rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
+                                                       "cpu")}
+    cpu = children.start(lambda: cpu_reference(
+        cd, jobs, fleet, serving, make_policy(cpu_score_fn(), rcs["cpu"]),
+        degradations, rcs["cpu"]))
+    numpy = children.start(lambda: numpy_reference(
+        cd, jobs, fleet, serving, make_policy(None, rcs["numpy"]),
+        degradations, rcs["numpy"]))
+    return types.SimpleNamespace(cpu=cpu, numpy=numpy, rcs=rcs)
+
+
+def main_path_references(children, cd, fleet, jobs, serving, v2,
+                         degradations=(), make_rc=None):
+    from repro_torch.core.scoring import make_torch_score_fn
+    return start_references(
+        children, cd, jobs, fleet, serving, synergai,
+        lambda: make_torch_score_fn(v2=v2, device="cpu"), degradations,
+        make_rc)
+
+
+def resident_references(children, cd, fleet, jobs, serving, make_policy,
+                        degradations=(), make_rc=None):
+    from repro_torch.core.scoring import make_torch_score_fn
+    return start_references(
+        children, cd, jobs, fleet, serving, make_policy,
+        lambda: make_torch_score_fn(device_cache=True, device="cpu"),
+        degradations, make_rc)
+
+
+def main_path_run(label, cd, fleet, jobs, serving, v2, kernel, refs,
                   degradations=(), make_rc=None, tag="main_path"):
-    """A scoring-kernel path (v1, or v2 with ``v2``) on the card, on the CPU
-    and with the numpy default, each with a fresh re-characterizer from
-    ``make_rc`` if given.  Returns (launches, mean rows a scoring tick,
+    """A scoring-kernel path (v1, or v2 with ``v2``) on the card, held to
+    its CPU and numpy references (``refs``, from ``main_path_references``
+    with the same arguments).  Returns (launches, mean rows a scoring tick,
     the card's summary)."""
     from repro_torch.core.metrics import summarize
     from repro_torch.core.scoring import make_torch_score_fn
     from repro_torch.launch.schedule import caches_of
-    rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
-                                                       "cpu")}
-    # the CPU run in a child, beside the numpy and card runs
-    cpu = forked(lambda: cpu_reference(
-        cd, jobs, fleet, serving,
-        synergai(make_torch_score_fn(v2=v2, device="cpu"), rcs["cpu"]),
-        degradations, rcs["cpu"]))
-    res_np, ticks_np, wall_np, _ = drive(
-        cd, jobs, fleet, serving, synergai(None, rcs["numpy"]), degradations)
-
+    rcs = refs.rcs
     card_fn = make_torch_score_fn(v2=v2)
     card_pol = synergai(card_fn, rcs["card"])
     kernel.launches = 0
@@ -1129,7 +1245,9 @@ def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
                                                card_pol, degradations)
     launches = kernel.launches
 
-    cpu = cpu()
+    cpu, numpy = refs.cpu(), refs.numpy()
+    res_np, ticks_np, wall_np = (numpy["results"], numpy["ticks"],
+                                 numpy["wall"])
     if cpu["launches"]:
         raise SystemExit(f"FAIL {label}: the CPU run launched a kernel")
 
@@ -1146,7 +1264,8 @@ def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
             != cpu["counters"]["profile_reclaims"]):
         raise SystemExit(f"FAIL {label}: profile reclaims differ from the "
                          "device='cpu' run")
-    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc, cpu)
+    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc, cpu,
+                     numpy)
     placed = {r.job.id: (r.worker, r.config) for r in res_card}
     differ = sum(placed[r.job.id] != (r.worker, r.config) for r in res_np)
     s_np, s_card = summarize(res_np), summarize(res_card)
@@ -1178,29 +1297,21 @@ def main_path_run(label, cd, fleet, jobs, serving, v2, kernel,
     return launches, card_fn.rows / calls, s_card
 
 
-def resident_run(label, cd, fleet, jobs, serving, make_policy,
+def resident_run(label, cd, fleet, jobs, serving, make_policy, refs,
                  degradations=(), make_rc=None, tag="main_path"):
     """The device-resident path: ``make_policy(score_fn, rc)`` on the card,
-    on the CPU and with the numpy default (``score_fn=None``), each with a
-    fresh re-characterizer from ``make_rc`` if given.  Returns a namespace:
+    held to its CPU and numpy references (``refs``, from
+    ``resident_references`` with the same arguments).  Returns a namespace:
     the launches of each tick kernel, the mean (J, cap) of the card's ticks,
-    the card's summary, and the card's and numpy's results and clusters."""
+    the card's summary, its results and cluster, and the numpy
+    reference's report."""
     from repro_torch.core import devicecache
     from repro_torch.core.energy import edge_energy
     from repro_torch.core.metrics import summarize
     from repro_torch.core.scoring import make_torch_score_fn
     from repro_torch.kernels import scheduler_score as ss
     from repro_torch.launch.schedule import caches_of
-    rcs = {k: make_rc() if make_rc else None for k in ("numpy", "card",
-                                                       "cpu")}
-    # the CPU run in a child, beside the numpy and card runs
-    cpu = forked(lambda: cpu_reference(
-        cd, jobs, fleet, serving,
-        make_policy(make_torch_score_fn(device_cache=True, device="cpu"),
-                    rcs["cpu"]), degradations, rcs["cpu"]))
-    res_np, ticks_np, wall_np, cluster_np = drive(
-        cd, jobs, fleet, serving, make_policy(None, rcs["numpy"]),
-        degradations)
+    rcs = refs.rcs
 
     # per device_tick: queue length, pool rows, host-clock seconds; and the
     # rows uploaded by the syncs in which a refresh reclaimed rows
@@ -1236,7 +1347,9 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
         devicecache.DeviceScoreCache.device_tick = inner
         devicecache.DeviceScoreCache.sync = inner_sync
 
-    cpu = cpu()
+    cpu, numpy = refs.cpu(), refs.numpy()
+    res_np, ticks_np, wall_np = (numpy["results"], numpy["ticks"],
+                                 numpy["wall"])
     if cpu["launches"]:
         raise SystemExit(f"FAIL {label}: the CPU run launched a kernel")
 
@@ -1255,7 +1368,8 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
         if sum(getattr(c, key) for c in caches) != sum(cpu["counters"][key]):
             raise SystemExit(f"FAIL {label}: counter {key} differs from the "
                              "device='cpu' run")
-    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc, cpu)
+    loop = hold_loop(label, cd, rcs, caches, make_rc is online_rc, cpu,
+                     numpy)
     if len(res_card) != len(jobs):
         raise SystemExit(f"FAIL {label}: {len(res_card)} results")
     placed = {r.job.id: (r.worker, r.config) for r in res_card}
@@ -1293,8 +1407,7 @@ def resident_run(label, cd, fleet, jobs, serving, make_policy,
     print(f"{tag} " + json.dumps(line), flush=True)
     return types.SimpleNamespace(
         launches=launches, mean_j=mean_j, mean_cap=mean_cap, summary=s_card,
-        results=res_card, cluster=cluster_card, numpy_results=res_np,
-        numpy_cluster=cluster_np)
+        results=res_card, cluster=cluster_card, numpy=numpy)
 
 
 def host_policies():
@@ -1313,24 +1426,41 @@ def ratios(violations):
                 statistics.fmean(violations[n] for n in BASELINES) / syn}
 
 
-def comparison(cd, fleet, jobs, synergai_run):
-    """SLO-MAEL and the five baselines on the host over the 10k-job MMPP
-    jobs, beside the job-resident SynergAI run on the card."""
+def host_run(cd, jobs, fleet, name):
+    """One host policy's run over ``jobs`` in job mode (a forked child's
+    work): its result count, summary, wall and per-call seconds."""
     from repro_torch.core.metrics import summarize
+    res, ticks, wall, _ = drive(cd, jobs, fleet, "job",
+                                host_policies()[name]())
+    return {"results": len(res), "summary": summarize(res), "wall": wall,
+            "schedule_ms_per_call": statistics.fmean(ticks) * 1e3}
+
+
+def start_comparison(children, cd, fleet, jobs):
+    """Start SLO-MAEL's and the five baselines' runs in children."""
+    return {name: children.start(lambda name=name: host_run(cd, jobs, fleet,
+                                                             name))
+            for name in host_policies()}
+
+
+def comparison(jobs, fleet, synergai_run, host):
+    """SLO-MAEL and the five baselines on the host over the 10k-job MMPP
+    jobs (``host``: ``start_comparison``'s waiters), beside the
+    job-resident SynergAI run on the card."""
     rows = {"SynergAI": {
         "violations": synergai_run.summary["violations"],
         "goodput_jps": synergai_run.summary["goodput_jps"],
         "device": "card"}}
-    for name, cls in host_policies().items():
-        res, ticks, wall, _ = drive(cd, jobs, fleet, "job", cls())
-        s = summarize(res)
-        if len(res) != len(jobs) or not math.isfinite(s["e2e_avg_s"]):
-            raise SystemExit(f"FAIL comparison {name}: {len(res)} results, "
-                             f"{s['e2e_avg_s']} e2e")
+    for name, wait in host.items():
+        run = wait()
+        s = run["summary"]
+        if run["results"] != len(jobs) or not math.isfinite(s["e2e_avg_s"]):
+            raise SystemExit(f"FAIL comparison {name}: {run['results']} "
+                             f"results, {s['e2e_avg_s']} e2e")
         rows[name] = {"violations": s["violations"],
                       "goodput_jps": s["goodput_jps"], "device": "host",
-                      "wall_s": wall,
-                      "schedule_ms_per_call": statistics.fmean(ticks) * 1e3}
+                      "wall_s": run["wall"],
+                      "schedule_ms_per_call": run["schedule_ms_per_call"]}
     line = {"run": "mmpp-10k", "jobs": len(jobs), "pools": len(fleet),
             "policies": rows,
             **ratios({k: v["violations"] for k, v in rows.items()}),
@@ -1339,10 +1469,43 @@ def comparison(cd, fleet, jobs, synergai_run):
     print("comparison " + json.dumps(line), flush=True)
 
 
-def paper_experiments(cd):
+def paper_references(cd):
+    """The runs of the paper's experiments that do not touch the card (a
+    forked child's work): by (experiment, policy, seed) each host policy's
+    and numpy SynergAI's violations, and by (experiment, seed) the
+    canonical results of resident SynergAI's run on the CPU."""
+    from repro_torch.core.job import make_experiment
+    from repro_torch.core.metrics import summarize
+    from repro_torch.core.scheduler import SynergAI
+    from repro_torch.core.scoring import make_torch_score_fn
+    from repro_torch.core.simulator import Simulator
+    policies = host_policies()
+    out = {"violations": {}, "cpu": {}}
+    for exp, demand, freq in EXPERIMENTS:
+        for seed in EXPERIMENT_SEEDS:
+            out["cpu"][exp, seed] = canon(Simulator(cd, SynergAI(
+                score_fn=make_torch_score_fn(device_cache=True,
+                                             device="cpu")),
+                seed=seed).run(make_experiment(cd, demand, freq,
+                                               seed=seed)))
+            for name in (*policies, "SynergAI-numpy"):
+                jobs = make_experiment(cd, demand, freq, seed=seed)
+                pol = (SynergAI() if name == "SynergAI-numpy"
+                       else policies[name]())
+                res = Simulator(cd, pol, seed=seed).run(jobs)
+                if len(res) != len(jobs):
+                    raise SystemExit(f"FAIL paper {exp} {name}: "
+                                     f"{len(res)} results")
+                out["violations"][exp, name, seed] = summarize(
+                    res)["violations"]
+    return out
+
+
+def paper_experiments(cd, refs):
     """The paper's three experiments x five seeds, all seven policies, with
     SynergAI on the resident backend on the card (held to the same run on
-    the CPU, its launches to its ticks) and, beside it, numpy SynergAI.
+    the CPU, its launches to its ticks) and, beside it, numpy SynergAI;
+    every run but the card's from ``refs`` (``paper_references``' waiter).
     Returns the tick kernels' launches."""
     from repro_torch.core.job import make_experiment
     from repro_torch.core.metrics import summarize
@@ -1351,6 +1514,7 @@ def paper_experiments(cd):
     from repro_torch.core.simulator import Simulator
     from repro_torch.kernels import scheduler_score as ss
     policies = host_policies()
+    refs = refs()
     totals = {name: 0 for name in (*policies, "SynergAI", "SynergAI-numpy")}
     by_exp = {}
     launches = {"tick_score_kernel": 0, "greedy_place_kernel": 0}
@@ -1360,30 +1524,26 @@ def paper_experiments(cd):
         for name in totals:
             v = 0
             for seed in EXPERIMENT_SEEDS:
+                if name != "SynergAI":
+                    v += refs["violations"][exp, name, seed]
+                    continue
                 jobs = make_experiment(cd, demand, freq, seed=seed)
-                if name == "SynergAI":
-                    pol = SynergAI(score_fn=make_torch_score_fn(
-                        device_cache=True))
-                    ss.tick_score.launches = ss.greedy_place.launches = 0
-                    res = Simulator(cd, pol, seed=seed).run(jobs)
-                    got = (ss.tick_score.launches, ss.greedy_place.launches)
-                    cpu = Simulator(cd, SynergAI(score_fn=make_torch_score_fn(
-                        device_cache=True, device="cpu")), seed=seed).run(jobs)
-                    if got != (pol.cache.ticks,) * 2 or pol.cache.ticks <= 0:
-                        raise SystemExit(f"FAIL paper {exp} seed {seed}: "
-                                         f"launches {got} for "
-                                         f"{pol.cache.ticks} device ticks")
-                    if canon(res) != canon(cpu):
-                        raise SystemExit(f"FAIL paper {exp} seed {seed}: "
-                                         "card results differ from the "
-                                         "device='cpu' run")
-                    launches["tick_score_kernel"] += got[0]
-                    launches["greedy_place_kernel"] += got[1]
-                    ticks += pol.cache.ticks
-                else:
-                    pol = (SynergAI() if name == "SynergAI-numpy"
-                           else policies[name]())
-                    res = Simulator(cd, pol, seed=seed).run(jobs)
+                pol = SynergAI(score_fn=make_torch_score_fn(
+                    device_cache=True))
+                ss.tick_score.launches = ss.greedy_place.launches = 0
+                res = Simulator(cd, pol, seed=seed).run(jobs)
+                got = (ss.tick_score.launches, ss.greedy_place.launches)
+                if got != (pol.cache.ticks,) * 2 or pol.cache.ticks <= 0:
+                    raise SystemExit(f"FAIL paper {exp} seed {seed}: "
+                                     f"launches {got} for "
+                                     f"{pol.cache.ticks} device ticks")
+                if canon(res) != refs["cpu"][exp, seed]:
+                    raise SystemExit(f"FAIL paper {exp} seed {seed}: "
+                                     "card results differ from the "
+                                     "device='cpu' run")
+                launches["tick_score_kernel"] += got[0]
+                launches["greedy_place_kernel"] += got[1]
+                ticks += pol.cache.ticks
                 if len(res) != len(jobs):
                     raise SystemExit(f"FAIL paper {exp} {name}: "
                                      f"{len(res)} results")
@@ -1403,12 +1563,16 @@ def paper_experiments(cd):
 
 
 def energy_line(label, run):
-    """The energy accounting of a resident run, card against numpy."""
-    from repro_torch.core.energy import (edge_energy,
-                                         normalized_edge_energy,
-                                         offload_fraction)
-    norm = normalized_edge_energy({"card": run.cluster,
-                                   "numpy": run.numpy_cluster})
+    """The energy accounting of a resident run, card against numpy: the
+    numpy run's edge energy and offload fraction come from its child, and
+    both runs' energies are normalized as ``normalized_edge_energy`` does
+    (each pool by its peak over the runs)."""
+    from repro_torch.core.energy import edge_energy, offload_fraction
+    energy = {"card": edge_energy(run.cluster), "numpy": run.numpy["energy"]}
+    peak = {p: max(e.get(p, 0.0) for e in energy.values())
+            for p in set().union(*energy.values())}
+    norm = {k: {p: (0.0 if peak[p] <= 0.0 else v / peak[p])
+                for p, v in e.items()} for k, e in energy.items()}
     pools = sorted(norm["card"])
     line = {
         "run": label, "edge_pools": len(pools),
@@ -1417,12 +1581,10 @@ def energy_line(label, run):
             for k, v in norm.items()},
         "normalized_max_abs_diff_card_vs_numpy": max(
             abs(norm["card"][p] - norm["numpy"][p]) for p in pools),
-        "edge_energy_j": {
-            "card": sum(edge_energy(run.cluster).values()),
-            "numpy": sum(edge_energy(run.numpy_cluster).values())},
+        "edge_energy_j": {k: sum(e.values()) for k, e in energy.items()},
         "offload_fraction": {
             "card": offload_fraction(run.results, run.cluster),
-            "numpy": offload_fraction(run.numpy_results, run.numpy_cluster)},
+            "numpy": run.numpy["offload"]},
     }
     if not all(math.isfinite(x) for x in (*line["edge_energy_j"].values(),
                                           *line["offload_fraction"].values())):
@@ -1496,35 +1658,80 @@ def scheduling_path():
     from repro_torch.core.workload import (regional_scenario, scenario,
                                            synth_degradations)
     from repro_torch.kernels import scheduler_score as ss
-    # 3. the scheduling path at full size
+    # 3. the scheduling path at full size.  Every run's inputs first, then
+    # every run's CPU and numpy references and 3g's host policies in
+    # forked children that take turns beside the card runs (``Children``)
     cd = characterize()
     fleet = synth_fleet(*POOLS)
     mmpp = scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0)
     streaming = scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=fleet, seed=0,
                          serving="batched", streaming=(2.0, 2.5))
+    regions = synth_fleet(*POOLS, regions=3)
+    regional = regional_scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=regions,
+                                 seed=0)
+    drift_jobs = scenario(cd, "drift", n_jobs=N_JOBS, fleet=regions, seed=0)
+    degs = synth_degradations(regions, drift_jobs[-1].arrival, **DRIFT)
+
+    def energy_policy(fn, rc):
+        return SynergAI(score_fn=fn, recharacterizer=rc, energy_weight=0.5)
+
+    def hier_policy(fn, rc):
+        return HierarchicalSynergAI(score_fn=fn, recharacterizer=rc)
+
+    # (label, run, fixed arguments, keyword arguments), in the card's order
+    runs = [
+        ("job-v1", "main", (fleet, mmpp, "job", False), {}),
+        ("batched-streaming-v2", "main", (fleet, streaming, "batched", True),
+         {}),
+        ("job-resident", "resident", (fleet, mmpp, "job", synergai), {}),
+        ("batched-streaming-resident", "resident",
+         (fleet, streaming, "batched", energy_policy), {}),
+        ("hier-resident", "resident", (regions, regional, "job",
+                                       hier_policy), {}),
+    ] + [
+        (f"drift-resident-{name}", "resident",
+         (regions, drift_jobs, "job", synergai),
+         dict(degradations=degs, make_rc=make_rc, tag="drift"))
+        for name, make_rc in (("stale", None), ("online", online_rc),
+                              ("oracle", oracle_rc(cd, regions, degs)))
+    ] + [
+        ("drift-v2-online", "main", (regions, drift_jobs, "job", True),
+         dict(degradations=degs, make_rc=online_rc, tag="drift")),
+        ("drift-hier-resident-online", "resident",
+         (regions, drift_jobs, "job", hier_policy),
+         dict(degradations=degs, make_rc=online_rc, tag="drift")),
+    ]
+    t_fork = time.perf_counter()
+    children = Children(max(1, (os.cpu_count() or 2) - 2))
+    refs = {}
+    for label, kind, args, kw in runs:
+        start = main_path_references if kind == "main" else \
+            resident_references
+        refs[label] = start(children, cd, *args,
+                            **{k: v for k, v in kw.items() if k != "tag"})
+    host = start_comparison(children, cd, fleet, mmpp)
+    paper = children.start(lambda: paper_references(cd))
+    print(f"children: {children.started} CPU and numpy references and host "
+          f"policies forked in {time.perf_counter() - t_fork:.1f} s, "
+          f"{children.limit} at a time", flush=True)
+
+    def run(label, kernel=None):
+        kind, args, kw = next((k, a, w) for name, k, a, w in runs
+                              if name == label)
+        if kind == "main":
+            return main_path_run(label, cd, *args, kernel, refs[label], **kw)
+        return resident_run(label, cd, *args, refs[label], **kw)
+
     main_path = {
-        "scheduler_score": main_path_run(
-            "job-v1", cd, fleet, mmpp, "job", False, ss.scheduler_score),
-        "scheduler_score_v2": main_path_run(
-            "batched-streaming-v2", cd, fleet, streaming, "batched", True,
-            ss.scheduler_score_v2),
+        "scheduler_score": run("job-v1", ss.scheduler_score),
+        "scheduler_score_v2": run("batched-streaming-v2",
+                                  ss.scheduler_score_v2),
     }
-    resident = {
-        "job-resident": resident_run(
-            "job-resident", cd, fleet, mmpp, "job", synergai),
-        "batched-streaming-resident": resident_run(
-            "batched-streaming-resident", cd, fleet, streaming, "batched",
-            lambda fn, rc: SynergAI(score_fn=fn, recharacterizer=rc,
-                                    energy_weight=0.5)),
-    }
+    resident = {name: run(name) for name in ("job-resident",
+                                             "batched-streaming-resident")}
     energy_line("batched-streaming-resident",
                 resident["batched-streaming-resident"])
-    regions = synth_fleet(*POOLS, regions=3)
-    resident["hier-resident"] = resident_run(
-        "hier-resident", cd, regions,
-        regional_scenario(cd, "mmpp", n_jobs=N_JOBS, fleet=regions, seed=0),
-        "job", lambda fn, rc: HierarchicalSynergAI(score_fn=fn,
-                                                   recharacterizer=rc))
+    resident["hier-resident"] = run("hier-resident")
 
     tick_stages(cd, fleet, mmpp[:3000])
 
@@ -1533,27 +1740,15 @@ def scheduling_path():
     # re-characterization through the resident tick, online through v2, and
     # online under the hierarchy (one re-characterizer for every region)
     t_drift = time.perf_counter()
-    drift_jobs = scenario(cd, "drift", n_jobs=N_JOBS, fleet=regions, seed=0)
-    degs = synth_degradations(regions, drift_jobs[-1].arrival, **DRIFT)
     print(f"drift: {len(degs)} of {len(regions)} pools degraded, factors "
           f"{min(d.factor for d in degs):.3f}-"
           f"{max(d.factor for d in degs):.3f}, onsets "
           f"{min(d.at for d in degs):.1f}-{max(d.at for d in degs):.1f} s "
           f"of {drift_jobs[-1].arrival:.1f} s", flush=True)
-    drift = {
-        name: resident_run(f"drift-resident-{name}", cd, regions,
-                           drift_jobs, "job", synergai, degradations=degs,
-                           make_rc=make_rc, tag="drift")
-        for name, make_rc in (("stale", None), ("online", online_rc),
-                              ("oracle", oracle_rc(cd, regions, degs)))}
-    drift_v2 = main_path_run("drift-v2-online", cd, regions, drift_jobs,
-                             "job", True, ss.scheduler_score_v2,
-                             degradations=degs, make_rc=online_rc,
-                             tag="drift")
-    drift["hier-online"] = resident_run(
-        "drift-hier-resident-online", cd, regions, drift_jobs, "job",
-        lambda fn, rc: HierarchicalSynergAI(score_fn=fn, recharacterizer=rc),
-        degradations=degs, make_rc=online_rc, tag="drift")
+    drift = {name: run(f"drift-resident-{name}")
+             for name in ("stale", "online", "oracle")}
+    drift_v2 = run("drift-v2-online", ss.scheduler_score_v2)
+    drift["hier-online"] = run("drift-hier-resident-online")
     stale_v = drift["stale"].summary["violations"]
     online_v = drift["online"].summary["violations"]
     if not online_v < stale_v:
@@ -1568,8 +1763,8 @@ def scheduling_path():
     # 3g. the paper's comparison policies: SLO-MAEL and the five baselines
     # on the host beside the job-resident run; then the paper's experiments
     t_cmp = time.perf_counter()
-    comparison(cd, fleet, mmpp, resident["job-resident"])
-    paper_launches = paper_experiments(cd)
+    comparison(mmpp, fleet, resident["job-resident"], host)
+    paper_launches = paper_experiments(cd, paper)
     print(f"comparison: {time.perf_counter() - t_cmp:.1f} s", flush=True)
     return types.SimpleNamespace(
         fleet=fleet, main_path=main_path, resident=resident, drift=drift,
@@ -1980,7 +2175,10 @@ def hold_rwkv_bwd(B, S, H, hd, with_state, rate):
     before = rs.rwkv_scan_bwd.launches
     got, again = rs.rwkv_scan_bwd(*args), rs.rwkv_scan_bwd(*args)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = rs.rwkv_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    want_s = time.perf_counter() - t0
     repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                  for a, b in zip(got, again))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
@@ -2007,14 +2205,13 @@ def hold_rwkv_bwd(B, S, H, hd, with_state, rate):
         raise SystemExit(f"FAIL {label}: {api} launches a call, kernels "
                          f"{device}")
     bound_ms, bound_by = rwkv_bwd_bound(B, S, H, hd, with_state, rate)
-    big = B * S * H > 100_000      # the plain loop takes seconds here
     split = rs.bwd_split(B, H, hd)
     r = {"max_abs_err": err, "exact": True, "repeat_bit_identical": True,
          "split": split, "ctas": B * H * split, "kernels_per_call": device,
          "ms": time_ms(kernel, reps=5, batch=2),
          "device_ms": device_ms(kernel, "rwkv_scan_bwd_kernel", reps=5),
-         "plain_ms": time_ms(lambda: rs.rwkv_scan_bwd_plain(*args),
-                             reps=1 if big else 3, batch=1),
+         "plain_ms": (want_s * 1e3 if want_s > SLOW_S else time_ms(
+             lambda: rs.rwkv_scan_bwd_plain(*args), reps=3, batch=1)),
          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"hold {label}: bit-equal, repeat bit-identical, one kernel a "
           "call, " + json.dumps(r), flush=True)
@@ -3235,14 +3432,18 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
     when u moves by the grad hold's own bound, tau = clip * 1e-4 * max |g|
     of its leaf: at most eps tau / (max(|u| - tau, 0) + eps)^2, and 2 (a
     flipped sign).  Elements over the first part and within the second are
-    printed as excused.  The kernels' run (params, grads, m and v) waits on
-    the host while the plain run's are taken, so the card holds one f32
-    train state at a time beside ``params``."""
+    printed as excused.  Where the card's free memory is under
+    ``F32_ROOM`` times the kernels' run (params, grads, m and v: room for
+    the plain run's and its activations), that run waits on the host while
+    the plain run's are taken, so the card holds one f32 train state at a
+    time beside ``params``."""
     import torch
-    from repro_torch._tree import tree_leaves_with_paths, tree_map
+    from repro_torch._tree import tree_leaves, tree_leaves_with_paths, tree_map
     from repro_torch.training.optimizer import adamw_update, init_opt_state
     from repro_torch.training.train_step import loss_and_grads
     runs = {}
+    p_dev = tree_leaves(params)[0].device
+    kept = "card"       # where the kernels' run waits for the plain run
     for which in ("kernels", "plain"):     # the plain step updates params
         p = tree_map(lambda t: t.clone(), params) if which == "kernels" \
             else params
@@ -3261,8 +3462,12 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
                              f"run launched {moved}")
         _, opt, metrics = adamw_update(opt_cfg, p, grads, state["opt"])
         run = {"grads": grads, "params": p, "opt": opt}
-        if which == "kernels":
-            run = tree_map(lambda t: t.cpu(), run)
+        if which == "kernels" and p_dev.type == "cuda":
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(run))
+            if torch.cuda.mem_get_info(p_dev)[0] < F32_ROOM * nbytes:
+                run = tree_map(lambda t: t.cpu(), run)
+                kept = "host"
         runs[which] = dict(run, loss=float(loss), lr=float(metrics["lr"]),
                            clip=min(1.0, opt_cfg.grad_clip
                                     / max(float(metrics["grad_norm"]),
@@ -3303,7 +3508,8 @@ def held_f32_step(model, params, batch, opt_cfg, wrappers):
             "loss_plain": q["loss"], "rel": worst, "bound": TRAIN_F32_REL,
             "lr": lr, "param_elements": elements,
             "params_over": over, "params_excused_near_zero_u": excused,
-            "worst_param_delta_over_lr": worst_param}
+            "worst_param_delta_over_lr": worst_param,
+            "kernels_run_kept_on": kept}
     print("train_f32_step " + json.dumps(line), flush=True)
     if over or any(worst[key] > TRAIN_F32_REL[key] for key in worst):
         raise SystemExit(f"FAIL f32 step {model.cfg.name}: {line}")
@@ -3579,6 +3785,271 @@ def vlm_train_cut(cfg):
     return depth
 
 
+# ---------------------------------------------------------------------------
+# 5h. the one-device mesh
+
+
+@contextmanager
+def one_device_mesh(device=None):
+    """A world-size-1 process group on a ``FileStore`` in a temporary
+    directory (no TCP listener; ``nccl`` on the card, ``gloo`` where
+    ``device="cpu"`` rehearses it) and the (1, 1) ``data x model`` mesh on
+    it; the group is destroyed on the way out, so no later code sees it."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    cpu = device == "cpu"
+    if not cpu:
+        torch.cuda.set_device(torch.cuda.current_device())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo" if cpu else "nccl", rank=0, world_size=1,
+            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            yield make_mesh((1, 1), ("data", "model"),
+                            device_type="cpu" if cpu else "cuda")
+        finally:
+            dist.destroy_process_group()
+
+
+@contextmanager
+def active(mesh):
+    """``mesh`` the active mesh, cleared on the way out."""
+    from repro_torch.distributed import sharding as sh
+    sh.set_active_mesh(mesh)
+    try:
+        yield
+    finally:
+        sh.set_active_mesh(None)
+
+
+def gathered(tree):
+    """A tree's DTensors as their full tensors (on the (1, 1) mesh, each
+    rank's local tensor is the whole)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch._tree import tree_map
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def differing(a, b):
+    """The paths of the leaves of two trees that are not bit-equal."""
+    import torch
+    from repro_torch._tree import tree_leaves_with_paths
+    return [key for (key, x), (_, y) in zip(tree_leaves_with_paths(gathered(a)),
+                                            tree_leaves_with_paths(gathered(b)))
+            if not torch.equal(x, y)]
+
+
+def timed_call(fn, *args):
+    """(fn(*args), host seconds until it returned, seconds until the card
+    finished)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn(*args)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return out, host, time.perf_counter() - t0
+
+
+def mesh_train(mesh, cfg, steps, B, S, device=None):
+    """``steps`` AdamW steps of ``cfg`` (at full width, bf16, remat, its
+    depth cut) on ``DataLoader`` batches: once on plain tensors and
+    once on DTensors of the (1, 1) mesh (params by ``TRAIN_RULES``, moments
+    by ``opt_pspecs``, the batch by ``batch_pspecs``, ``grad_shardings``
+    from ``opt_pspecs``), from the same state.  Each step's loss and grad
+    norm, every param, m and v leaf after them, and each kernel's launches
+    must be equal, bit for bit.  Returns the mesh run's launches."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    model = build_model(cfg, device=device)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=20)
+    plain = init_train_state(model, torch.Generator(device=model.device)
+                             .manual_seed(0), opt_cfg)
+    params = plain["params"]
+    p_sh = sh.to_shardings(sh.param_pspecs(params, mesh, sh.TRAIN_RULES),
+                           mesh)
+    o_sh = sh.to_shardings(sh.opt_pspecs(params, mesh), mesh)
+
+    def copy(tree):
+        return tree_map(lambda t: t.clone(), tree)
+
+    dist_state = {"params": sh.distribute(copy(params), p_sh),
+                  "opt": {"m": sh.distribute(copy(plain["opt"]["m"]), o_sh),
+                          "v": sh.distribute(copy(plain["opt"]["v"]), o_sh),
+                          "step": plain["opt"]["step"].clone()}}
+    batches = train_batches(cfg, B, S, steps, model.device)
+    wrappers = train_wrappers()
+    runs = {}
+    for name in ("plain", "mesh"):
+        step_fn = make_train_step(model, opt_cfg,
+                                  grad_shardings=o_sh if name == "mesh"
+                                  else None)
+        state = plain if name == "plain" else dist_state
+        for fn in wrappers.values():
+            fn.launches = 0
+        metrics, host, wall = [], [], []
+        with (active(mesh) if name == "mesh" else ExitStack()):
+            for batch in batches:
+                if name == "mesh":
+                    batch = sh.distribute(batch, sh.to_shardings(
+                        sh.batch_pspecs(batch, mesh), mesh))
+                (state, m), h, w = timed_call(step_fn, state, batch)
+                metrics.append({k: gathered(m[k]).clone()
+                                for k in ("loss", "grad_norm")})
+                host.append(h)
+                wall.append(w)
+        runs[name] = dict(state=state, metrics=metrics, host=host, wall=wall,
+                          launches=launch_counts(wrappers))
+        if name == "plain":
+            plain = state
+    p, m = runs["plain"], runs["mesh"]
+    metrics_equal = all(torch.equal(a[k], b[k]) for a, b in zip(
+        p["metrics"], m["metrics"]) for k in ("loss", "grad_norm"))
+    leaves = {part: differing(p["state"][part[0]][part[1]] if part[1]
+                              else p["state"][part[0]],
+                              m["state"][part[0]][part[1]] if part[1]
+                              else m["state"][part[0]])
+              for part in (("params", None), ("opt", "m"), ("opt", "v"))}
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "params_b": n_params / 1e9, "batch": [B, S],
+            "steps": steps, "mesh": dict(zip(mesh.mesh_dim_names,
+                                             mesh.shape)),
+            "loss": [float(x["loss"]) for x in m["metrics"]],
+            "grad_norm": [float(x["grad_norm"]) for x in m["metrics"]],
+            "metrics_bit_equal": metrics_equal,
+            "leaves_differing": {"/".join(k for k in part if k): v
+                                 for part, v in leaves.items()},
+            "launches": {"plain": p["launches"], "mesh": m["launches"]},
+            "step_s": {"plain": p["wall"], "mesh": m["wall"]},
+            "host_s": {"plain": p["host"], "mesh": m["host"]}}
+    print("mesh_train " + json.dumps(line), flush=True)
+    if (not metrics_equal or any(leaves.values())
+            or p["launches"] != m["launches"]
+            or not any(p["launches"].values())):
+        raise SystemExit(f"FAIL mesh train {cfg.name}: {line}")
+    del runs, plain, dist_state, state, params
+    return m["launches"]
+
+
+def mesh_serve(mesh, cfg, device=None):
+    """Serving on the (1, 1) mesh: ``REQUESTS`` requests of batch
+    ``SERVE_BATCH`` x ``PROMPT`` and ``MESH_GEN`` decode steps of ``cfg``
+    (at full width, bf16, its depth cut) on plain tensors, on
+    DTensors (params by ``PARAM_RULES``, caches by ``cache_pspecs``) and on
+    DTensors again with ``ONEHOT_CACHE_UPDATE``: every step's logits and
+    the flash and decode-attention launches bit-equal, the plain run's
+    greedy tokens fed to all three.  Returns the mesh runs' launches."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.kvcache import pad_cache
+    model = build_model(cfg, device=device)
+    params = model.init_params(torch.Generator(device=model.device)
+                               .manual_seed(0))
+    dparams = sh.distribute(params, sh.to_shardings(
+        sh.param_pspecs(params, mesh), mesh))
+    rng = torch.Generator(device=model.device).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab, (SERVE_BATCH, PROMPT),
+                             generator=rng, device=model.device)
+               for _ in range(REQUESTS)]
+    wrappers = {k: v for k, v in kernel_wrappers().items()
+                if k in ("flash_attention", "decode_attention")}
+    buf = PROMPT + MESH_GEN + 8
+
+    def on_mesh(batch):
+        return sh.distribute(batch, sh.to_shardings(
+            sh.batch_pspecs(batch, mesh), mesh))
+
+    def serve(name, tokens):
+        sharded = name != "plain"
+        p = dparams if sharded else params
+        logits_all, host, wall = [], [], []
+        for r, prompt in enumerate(prompts):
+            batch = {"tokens": prompt}
+            (logits, caches), h, w = timed_call(
+                model.prefill, p, on_mesh(batch) if sharded else batch)
+            template = model.init_cache(SERVE_BATCH, buf)
+            if sharded:
+                template = sh.distribute(template, sh.to_shardings(
+                    sh.cache_pspecs(template, mesh), mesh))
+            caches = pad_cache(caches, template)
+            out = [gathered(logits)]
+            for i in range(MESH_GEN):
+                if name == "plain":
+                    tokens[r].append(torch.argmax(out[-1], -1)
+                                     .to(torch.int32)[:, None])
+                step = {"token": tokens[r][i]}
+                step = on_mesh(step) if sharded else step
+                (logits, caches), h, w = timed_call(
+                    model.decode, p, caches, {**step, "pos": PROMPT + i})
+                host.append(h)
+                wall.append(w)
+                out.append(gathered(logits))
+            logits_all.append(out)
+        return logits_all, host, wall
+
+    tokens = [[] for _ in prompts]
+    runs = {}
+    for name in ("plain", "mesh", "mesh onehot"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        with (active(mesh) if name != "plain" else ExitStack()):
+            model_layers.ONEHOT_CACHE_UPDATE = name == "mesh onehot"
+            try:
+                logits, host, wall = serve(name, tokens)
+            finally:
+                model_layers.ONEHOT_CACHE_UPDATE = False
+        runs[name] = dict(logits=logits, host=host, wall=wall,
+                          launches=launch_counts(wrappers))
+    ref = runs["plain"]
+    held = {name: all(torch.equal(a, b) for ra, rb in zip(
+        ref["logits"], run["logits"]) for a, b in zip(ra, rb))
+        for name, run in runs.items() if name != "plain"}
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "requests": REQUESTS, "batch": [SERVE_BATCH, PROMPT],
+            "decode_steps": MESH_GEN,
+            "logits_bit_equal_to_plain": held,
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "decode_step_s": {k: statistics.fmean(r["wall"])
+                              for k, r in runs.items()},
+            "decode_step_host_s": {k: statistics.fmean(r["host"])
+                                   for k, r in runs.items()}}
+    print("mesh_serve " + json.dumps(line), flush=True)
+    if (not all(held.values())
+            or any(r["launches"] != ref["launches"] for r in runs.values())
+            or not all(ref["launches"].values())):
+        raise SystemExit(f"FAIL mesh serve {cfg.name}: {line}")
+    return runs["mesh"]["launches"]
+
+
+def mesh_phase(train_cells, serve_cfg, B, S, device=None):
+    """Phase 5h: ``mesh_train`` of each (config, steps) of ``train_cells``
+    and ``mesh_serve`` of ``serve_cfg`` on a (1, 1) mesh.  Returns the mesh
+    runs' launches by path."""
+    import torch
+    paths = {}
+    with one_device_mesh(device) as mesh:
+        for cfg, steps in train_cells:
+            paths[f"mesh train {cfg.name}"] = mesh_train(mesh, cfg, steps, B,
+                                                         S, device)
+            torch.cuda.empty_cache()
+        paths[f"mesh serve {serve_cfg.name}"] = mesh_serve(mesh, serve_cfg,
+                                                           device)
+        torch.cuda.empty_cache()
+    print(f"mesh card: {card_line() if device is None else 'cpu'}",
+          flush=True)
+    return paths
+
+
 def phase_done(name, t0):
     """Print a phase's seconds on a line of its own; the next phase's
     start."""
@@ -3618,7 +4089,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rate = next((r for key, r in HBM_RATE if key in name), 3.35e12)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}; HBM rate {rate / 1e12} TB/s", flush=True)
+          f"{torch.version.cuda}; HBM rate {rate / 1e12} TB/s; "
+          f"{os.cpu_count()} CPUs", flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {', '.join(f'{s}.cu' for s in _build.SOURCES)} in "
@@ -3992,6 +4464,15 @@ def main() -> int:
                             dtype="float32"))
     t_phase = phase_done(f"5g (train {RWKV_ARCH})", t_phase)
 
+    # 5h. the one-device mesh: training and serving on DTensors of a (1, 1)
+    # mesh, bit-equal to plain tensors through the same kernels
+    mesh_launches = mesh_phase(
+        [(dataclasses.replace(get_config(arch), n_layers=layers), steps)
+         for arch, layers, steps in MESH_TRAIN],
+        dataclasses.replace(get_config(MESH_SERVE[0]),
+                            n_layers=MESH_SERVE[1]), TRAIN_BATCH, TRAIN_SEQ)
+    t_phase = phase_done("5h (one-device mesh)", t_phase)
+
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result
     print("launch floor: " + json.dumps(
@@ -4255,6 +4736,12 @@ def main() -> int:
                                      "loss_chunks_device_ms_alone",
                                      "mamba_recurrence_share", "kernels")},
              "peak_memory_gb": peak}))
+    # 5h's mesh runs, beside each kernel's other paths
+    for row in rows:
+        for path, counts in mesh_launches.items():
+            if counts.get(row["name"]):
+                row["launches_by_path"][path] = counts[row["name"]]
+                row["launches"] += counts[row["name"]]
     phase_done("7 (launch floor, kernels at the paths' shapes)", t_phase)
     print(json.dumps({"kernels": rows}))
     print(card)

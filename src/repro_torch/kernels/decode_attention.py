@@ -24,10 +24,12 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _local
 from repro_torch.kernels.flash_attention import (DTYPES, NEG_INF,
-                                                 check_attention_inputs)
+                                                 check_attention_inputs,
+                                                 local_placements)
 
 TILE = 32            # keys a stage of the kernel's ring holds
 TARGET_CTAS = 264    # two CTAs on each of the H100's 132 SMs
@@ -106,7 +108,19 @@ def decode_attention(q, k, v, k_valid):
 
     On the card this is one kernel launch.  Its merge of the splits takes
     tickets from a counter buffer kept per device, so calls on one device
-    must not run on two streams at once (the port uses one stream)."""
+    must not run on two streams at once (the port uses one stream).  On
+    DTensors the same call runs on the local shards of
+    ``flash_attention.local_placements``, ``k_valid`` a host int."""
+    if isinstance(q, DTensor):
+        pl = local_placements(q, k)
+        k_valid = int(k_valid)
+        return _local.call(lambda q, k, v: _decode_attention(q, k, v,
+                                                              k_valid),
+                           (q, k, v), (pl, pl, pl), pl)
+    return _decode_attention(q, k, v, k_valid)
+
+
+def _decode_attention(q, k, v, k_valid):
     B, Sq, H, hd, S, K = check_attention_inputs("decode_attention", q, k, v)
     _build.refuse_grad("decode_attention", "a later training slice (no "
                        "family's training step runs decode-shaped "

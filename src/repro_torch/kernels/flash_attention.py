@@ -27,8 +27,9 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _local
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -76,7 +77,10 @@ def fits_kernels(q, k, v) -> bool:
     and v [B, Sk, K, hd] of one shape, H % K == 0, hd in ``HEAD_DIMS`` and at
     least one key.  A plain predicate on shapes that raises nothing; the
     model routes by it, and ``check_attention_inputs`` still raises when a
-    wrapper is called with shapes it refuses."""
+    wrapper is called with shapes it refuses.  On DTensors it reads the
+    global shapes: the local shards that the wrappers compute on
+    (``local_placements``: batch and heads divided alike, the rest whole)
+    have each property it tests exactly where the global shapes do."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         return False
     B, _, H, hd = q.shape
@@ -186,12 +190,30 @@ def _wants_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def local_placements(q, k):
+    """The layout of an attention call on DTensors: q's batch (dim 0) and
+    head (dim 2) shards kept where they divide and k's kv heads split alike
+    (so each rank's query heads use its own kv heads), the sequence and
+    head_dim whole; the same for k, v and the output."""
+    return _local.kept(q, {0: q.shape[0], 2: k.shape[2]})
+
+
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] with H % K == 0, float32 or
     bfloat16, contiguous, on one device.  ``window``: keys with
     q_pos - k_pos >= window are masked (None: no window).  Returns
     [B, Sq, H, hd] in q's dtype, through ``FlashAttentionFn`` when grad mode
-    is on and an input requires grad."""
+    is on and an input requires grad.  On DTensors the same call runs on the
+    local shards of ``local_placements``."""
+    if isinstance(q, DTensor):
+        pl = local_placements(q, k)
+        return _local.call(
+            lambda q, k, v: _flash_attention(q, k, v, causal, window),
+            (q, k, v), (pl, pl, pl), pl)
+    return _flash_attention(q, k, v, causal, window)
+
+
+def _flash_attention(q, k, v, causal, window):
     B, Sq, H, hd, Sk, K = check_attention_inputs("flash_attention", q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} must be >= 1")

@@ -38,8 +38,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _local
 from repro_torch.kernels.flash_attention import DTYPES, _wants_grad
 
 MAX_EXPERTS = 256
@@ -212,7 +213,19 @@ def moe_routing(x, router_w, top_k, design=None):
     off the top-k and renormalized over it; mask [T, E] f32, 1 at the
     top-k), through ``MoeRoutingFn`` when grad mode is on and an input
     requires grad.  ``design`` ("decode" or "prefill") overrides the
-    kernel's choice by T; both give the same bits."""
+    kernel's choice by T; both give the same bits.  On DTensors the same
+    call runs on the local shards: x's token shards (dim 0) kept where they
+    divide, D and E whole."""
+    if isinstance(x, DTensor):
+        pl = _local.kept(x, {0: x.shape[0]})
+        whole = [Replicate()] * x.device_mesh.ndim
+        return _local.call(lambda x, w: _moe_routing(x, w, top_k, design),
+                           (x, router_w), (pl, whole), (pl, pl),
+                           (pl, _local.summed_over(pl, 0, whole)))
+    return _moe_routing(x, router_w, top_k, design)
+
+
+def _moe_routing(x, router_w, top_k, design):
     check_routing_inputs(x, router_w, top_k)
     if design not in DESIGNS:
         raise ValueError(f"moe_routing: design {design!r} is none of "

@@ -34,8 +34,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _local
 from repro_torch.kernels.flash_attention import DTYPES, _wants_grad
 
 HEAD_DIMS = (16, 32, 64)       # powers of two: the pairwise sum halves hd
@@ -275,7 +276,16 @@ def rwkv_scan(r, k, v, w, u, state=None, *, state_out=None):
     f32), the end state written to ``state_out`` when it is given;
     ``state_out`` may be ``state`` itself (an update in place).  Through
     ``RwkvScanFn`` when grad mode is on and an input requires grad (float32
-    inputs, no ``state_out``)."""
+    inputs, no ``state_out``).  On DTensors the same call runs on the local
+    shards: r's batch and head shards kept where they divide, the sequence
+    and head_dim whole; a ``state_out`` must already be laid out so (batch
+    on dim 0, heads on dim 1), and its local shard is written."""
+    if isinstance(r, DTensor):
+        return _sharded_scan(r, k, v, w, u, state, state_out)
+    return _rwkv_scan(r, k, v, w, u, state, state_out)
+
+
+def _rwkv_scan(r, k, v, w, u, state, state_out):
     check_scan_inputs(r, k, v, w, u, state, state_out)
     if _wants_grad(*(t for t in (r, k, v, w, u, state) if t is not None)):
         if r.dtype != torch.float32:
@@ -289,6 +299,29 @@ def rwkv_scan(r, k, v, w, u, state=None, *, state_out=None):
 
 
 rwkv_scan.launches = 0
+
+
+def _sharded_scan(r, k, v, w, u, state, state_out):
+    pl = _local.kept(r, {0: r.shape[0], 2: r.shape[2]})
+    u_pl = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
+    s_pl = _local.moved(pl, {0: 0, 2: 1})
+    out_local = None
+    if state_out is not None:
+        if (not isinstance(state_out, DTensor)
+                or list(state_out.placements) != s_pl):
+            raise ValueError(f"rwkv_scan: state_out must be a DTensor laid "
+                             f"out as {s_pl}")
+        out_local = state_out.to_local()
+    args, in_pl = (r, k, v, w, u), [pl] * 4 + [u_pl]
+    grad_pl = in_pl[:4] + [_local.summed_over(pl, 0, u_pl)]
+    if state is not None:
+        args, in_pl, grad_pl = args + (state,), in_pl + [s_pl], grad_pl + [s_pl]
+
+    def scan(r, k, v, w, u, *state):
+        return _rwkv_scan(r, k, v, w, u, state[0] if state else None,
+                          out_local)
+
+    return _local.call(scan, args, in_pl, (pl, s_pl), grad_pl)
 
 
 # ----------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_leaves, tree_map
@@ -43,6 +44,8 @@ from repro_torch.kernels.flash_attention import flash_attention, fits_kernels
 
 
 def _normal(generator, shape, device):
+    if torch.device(device if device is not None else "cpu").type == "meta":
+        return torch.empty(shape, device="meta")   # shapes only: no draw
     x = torch.randn(shape, generator=generator, device=generator.device)
     return x.to(device)
 
@@ -58,6 +61,8 @@ def dense_init(generator, shape, in_axis=-2, dtype=torch.float32,
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
                       device=device if device is not None
                       else generator.device)
+    if out.device.type == "meta":
+        return out
     for idx in itertools.product(*(range(n) for n in lead)):
         x = _normal(generator, tuple(shape), out.device)
         out[idx] = x.div_(math.sqrt(fan_in))
@@ -249,6 +254,22 @@ def mlp(params, x, act: str):
 # embedding / head
 
 
+def whole(t, dims=None):
+    """``t`` with ``dims`` (all when None) whole on every rank, and its
+    pending sums reduced, where it is a DTensor, else ``t`` itself: for what
+    DTensor's rules cannot take sharded.  Its embedding and gather rules
+    leave a vocab-sharded result that its own redistribution then cannot
+    reduce (so the lookups read a whole vocabulary), and a view cannot fold
+    dims of which a second one is sharded (so a product's folded dims are
+    whole past the first)."""
+    if not isinstance(t, DTensor):
+        return t
+    dims = None if dims is None else [d % t.dim() for d in dims]
+    pl = [Replicate() if p.is_partial() or isinstance(p, Shard)
+          and (dims is None or p.dim in dims) else p for p in t.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
 def init_embedding(generator, cfg: ModelConfig, dtype, device=None):
     return {
         "tok": embed_init(generator, (cfg.vocab, cfg.d_model), dtype=dtype,
@@ -260,7 +281,7 @@ def init_embedding(generator, cfg: ModelConfig, dtype, device=None):
 
 
 def embed(params, cfg: ModelConfig, tokens):
-    x = F.embedding(tokens, params["tok"])
+    x = F.embedding(tokens, whole(params["tok"]))
     if cfg.scale_embeddings:
         x = x * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=torch.float32).to(x.dtype)

@@ -19,8 +19,9 @@ counterpart of the JAX stack's ``jax.checkpoint(..., nothing_saveable)``:
 the backward recomputes a layer's activations from its input (the router
 kernel's forward among them, whose picks come out the same; the WKV
 scan's forward, which writes the same chunk states).  Every kind trains.
-The JAX stack's ``constrain_seq`` is a no-op off a device mesh and waits
-for the sharding slice.
+Every layer's input outside decode passes ``constrain_seq``, as in the JAX
+stack: on a DTensor under an active mesh it shards the residual stream's
+sequence over ``model``, and it is the identity on plain tensors.
 """
 
 from __future__ import annotations
@@ -30,10 +31,12 @@ from functools import partial
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain_seq
 from repro_torch.models import common, layers
 from repro_torch.models.common import apply_rope, rms_norm
 
@@ -155,52 +158,71 @@ def _init_group_cache(cfg: ModelConfig, g: Group, batch, buf_len, ctx_len,
     return layers.init_attn_cache(cfg, batch, buf, dtype, device, lead)
 
 
+def _norm_in(x, scale, cfg):
+    """A sublayer's input: the normed residual stream, its sequence whole
+    where it is a DTensor.  ``constrain_seq`` shards the stream's sequence
+    between layers, and the sublayers' products fold batch and sequence
+    into one dim, which DTensor's views cannot do with the second dim
+    sharded (the all-gather before a block of sequence parallelism)."""
+    return common.whole(rms_norm(x, scale, cfg.norm_eps), [1])
+
+
+def _add(x, h):
+    """The residual ``x + h``; on DTensors ``h`` first laid out as ``x``, so
+    that the gradient coming back to ``h`` takes ``h``'s own layout (an
+    add's backward hands each input the output's, the sequence-sharded
+    one, which the sublayer's products would then have to fold)."""
+    if isinstance(x, DTensor) and isinstance(h, DTensor):
+        h = h.redistribute(x.device_mesh, x.placements)
+    return x + h
+
+
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
                    pos, ctx=None, absorb_mla=False):
     if spec.kind == "rwkv":
         cache = cache or {}
         h, tm_cache = layers.rwkv_time_mix(
-            p, cfg, rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode,
+            p, cfg, _norm_in(x, p["ln1"], cfg), mode=mode,
             cache=cache)
-        x = x + h
+        x = _add(x, h)
         h, cm_shift = layers.rwkv_channel_mix(
-            p, cfg, rms_norm(x, p["ln2"], cfg.norm_eps), mode=mode,
+            p, cfg, _norm_in(x, p["ln2"], cfg), mode=mode,
             cache=cache.get("cm_shift"))
         if mode == "train":
-            return x + h, None
-        return x + h, dict(tm_cache, cm_shift=cm_shift)
+            return _add(x, h), None
+        return _add(x, h), dict(tm_cache, cm_shift=cm_shift)
     if spec.kind == "cross":      # residuals gated by tanh(gate)
         h, c_cache = layers.cross_sublayer(
-            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode,
+            p["attn"], cfg, _norm_in(x, p["ln1"], cfg), mode=mode,
             cache=cache, ctx=ctx)
-        x = x + torch.tanh(p["attn"]["gate_attn"]) * h
-        h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
-        return x + torch.tanh(p["attn"]["gate_ffn"]) * h, c_cache
+        x = _add(x, torch.tanh(p["attn"]["gate_attn"]) * h)
+        h = common.mlp(p["mlp"], _norm_in(x, p["ln2"], cfg), cfg.act)
+        return _add(x, torch.tanh(p["attn"]["gate_ffn"]) * h), c_cache
     if spec.kind == "hymba":      # attention and Mamba on one norm
         cache = cache or {}
-        xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+        xin = _norm_in(x, p["ln1"], cfg)
         a, a_cache = layers.attn_sublayer(
             p["attn"], cfg, xin, mode=mode, cache=cache.get("attn"), pos=pos,
             window=spec.window)
         s, s_cache = layers.mamba_branch(p["mamba"], cfg, xin, mode=mode,
                                          cache=cache.get("mamba"))
-        x = x + 0.5 * (rms_norm(a, p["norm_attn"], cfg.norm_eps)
-                       + rms_norm(s, p["norm_ssm"], cfg.norm_eps))
-        h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
-        return x + h, {"attn": a_cache, "mamba": s_cache}
+        x = _add(x, 0.5 * (rms_norm(a, p["norm_attn"], cfg.norm_eps)
+                           + rms_norm(s, p["norm_ssm"], cfg.norm_eps)))
+        h = common.mlp(p["mlp"], _norm_in(x, p["ln2"], cfg), cfg.act)
+        return _add(x, h), {"attn": a_cache, "mamba": s_cache}
     if spec.kind == "encdec_dec":  # self, ungated cross over ctx, MLP
         cache = cache or {}
         h, a_cache = layers.attn_sublayer(
-            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), mode=mode,
+            p["attn"], cfg, _norm_in(x, p["ln1"], cfg), mode=mode,
             cache=cache.get("attn"), pos=pos, window=None)
-        x = x + h
+        x = _add(x, h)
         h, c_cache = layers.cross_sublayer(
-            p["cross"], cfg, rms_norm(x, p["ln_cross"], cfg.norm_eps),
+            p["cross"], cfg, _norm_in(x, p["ln_cross"], cfg),
             mode=mode, cache=cache.get("cross"), ctx=ctx)
-        x = x + h
-        h = common.mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
-        return x + h, {"attn": a_cache, "cross": c_cache}
-    xin = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = _add(x, h)
+        h = common.mlp(p["mlp"], _norm_in(x, p["ln2"], cfg), cfg.act)
+        return _add(x, h), {"attn": a_cache, "cross": c_cache}
+    xin = _norm_in(x, p["ln1"], cfg)
     if spec.mla:
         h, a_cache = layers.mla_sublayer(p["attn"], cfg, xin, mode=mode,
                                          cache=cache, pos=pos,
@@ -209,11 +231,11 @@ def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, *, mode, cache,
         h, a_cache = layers.attn_sublayer(p["attn"], cfg, xin, mode=mode,
                                           cache=cache, pos=pos,
                                           window=spec.window)
-    x = x + h
-    xin = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = _add(x, h)
+    xin = _norm_in(x, p["ln2"], cfg)
     if spec.kind == "moe":
-        return x + layers.moe_ffn(p["moe"], cfg, xin), a_cache
-    return x + common.mlp(p["mlp"], xin, cfg.act), a_cache
+        return _add(x, layers.moe_ffn(p["moe"], cfg, xin)), a_cache
+    return _add(x, common.mlp(p["mlp"], xin, cfg.act)), a_cache
 
 
 # ----------------------------------------------------------------------------
@@ -235,13 +257,15 @@ def init_decoder_cache(cfg: ModelConfig, batch, buf_len, ctx_len=0,
 
 
 def _train_layer(p, cfg, spec, ctx, x):
+    x = constrain_seq(x)   # sequence-parallel residual stream (off-mesh: x)
     return _layer_forward(p, cfg, spec, x, mode="train", cache=None,
                           pos=None, ctx=ctx)[0]
 
 
 def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
                   ctx=None, absorb_mla=False):
-    """Run all layer groups.  x: [B, S, D] -> ([B, S, D], new_caches).
+    """Run all layer groups.  x: [B, S, D] -> ([B, S, D], new_caches); a
+    DTensor x comes back with its sequence whole.
 
     Train runs each layer with no cache (under ``checkpoint`` with
     ``cfg.remat``) and returns None for each group's cache.  Prefill
@@ -259,12 +283,14 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
                                 cfg, g.spec, ctx)
                 x = (checkpoint(layer, x, use_reentrant=False) if cfg.remat
                      else layer(x))
-        return x, [None] * len(groups)
+        return common.whole(x, [1]), [None] * len(groups)
     caches = caches if caches is not None else [None] * len(groups)
     new_caches = []
     for g, gparams, gcache in zip(groups, params["groups"], caches):
         produced = []
         for i in range(g.n):   # layer i of the stacked params and cache
+            if mode != "decode":
+                x = constrain_seq(x)
             x, c = _layer_forward(
                 tree_map(lambda t: t[i], gparams), cfg, g.spec, x, mode=mode,
                 cache=(None if gcache is None
@@ -273,7 +299,7 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
             produced.append(c)
         new_caches.append(gcache if gcache is not None else tree_map(
             lambda *ts: torch.stack(ts), *produced))
-    return x, new_caches
+    return common.whole(x, [1]), new_caches
 
 
 # ----------------------------------------------------------------------------

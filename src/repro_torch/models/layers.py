@@ -53,18 +53,23 @@ prefill whose context is as long as the query (the encoder-decoder's, where
 recurrence is ``lax.scan`` in the JAX package, not a Pallas kernel, so the
 port runs it in PyTorch on tensors: ``selective_scan`` in prefill and
 decode, ``common.chunked_time_scan`` of ``mamba_step`` in training.  The JAX
-package's ``ONEHOT_CACHE_UPDATE`` and ``SHARDED_DECODE_ATTN`` switches and
-the MoE sharding constraints (``constrain_moe_groups``,
-``constrain_moe_expert``, the identity off a device mesh) wait for the
-sharding slice.
+package's ``ONEHOT_CACHE_UPDATE`` switch is ported (off by default, as
+there); ``moe_ffn`` calls the MoE sharding constraints where the JAX one
+does (``constrain_moe_groups``, ``constrain_moe_expert``: the identity on
+plain tensors).  The ``SHARDED_DECODE_ATTN`` switch (a ``shard_map``
+flash-decode) waits for a later slice.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain_moe_expert,
+                                              constrain_moe_groups,
+                                              local_offset, local_part)
 from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.models import common
@@ -72,12 +77,42 @@ from repro_torch.models.common import (apply_rope, attention, dense_init,
                                        head_rms_norm, rms_norm, rope_freqs)
 
 
+# When True, decode-cache writes use a one-hot masked update instead of the
+# slot write: elementwise, so it stays shard-local on a sequence-sharded
+# cache (the JAX package's switch; its baseline is the slot write).
+ONEHOT_CACHE_UPDATE = False
+
+
 def _cache_write(buf, update, idx):
     """Write ``update`` [B, 1, ...] into ``buf`` [B, S, ...] at ``idx``, in
     place; ``idx`` is clamped into the buffer as ``dynamic_update_slice``
-    clamps it."""
+    clamps it.  With ``ONEHOT_CACHE_UPDATE`` the buffer becomes
+    ``buf * (1 - onehot) + update * onehot``, written back into it (an
+    ``idx`` outside the buffer then writes nothing, as in JAX)."""
+    if ONEHOT_CACHE_UPDATE:
+        S = buf.shape[1]
+        onehot = (torch.arange(S, dtype=torch.int32, device=buf.device)
+                  == int(idx)).to(buf.dtype)
+        onehot = onehot.reshape((1, S) + (1,) * (buf.dim() - 2))
+        buf.copy_(buf * (1 - onehot) + update.to(buf.dtype) * onehot)
+        return buf
     idx = min(max(int(idx), 0), buf.shape[1] - 1)
+    if isinstance(buf, DTensor):
+        return _slot_write_sharded(buf, update, idx)
     buf[:, idx] = update[:, 0]
+    return buf
+
+
+def _slot_write_sharded(buf, update, idx):
+    """The slot write on a DTensor cache, on each rank's own shard: the
+    rank whose shard of dim 1 holds slot ``idx`` writes it, with the update
+    laid out as the buffer's other dims.  (DTensor's indexed write would
+    redistribute the sharded slot dim into a copy and write that.)"""
+    upd = local_part(update, buf, {1})   # a collective: on every rank
+    local = buf.to_local()
+    i = idx - local_offset(buf, 1)
+    if 0 <= i < local.shape[1]:
+        local[:, i] = upd[:, 0]
     return buf
 
 
@@ -365,7 +400,10 @@ def moe_ffn(p, cfg: ModelConfig, x):
     G = S // g
     capacity = max(e.top_k, int(g / e.n_experts * e.top_k
                                 * e.capacity_factor))
-    xg = x.reshape(B, G, g, D)
+    xg = constrain_moe_groups(x.reshape(B, G, g, D))
+    # on DTensors the products below fold (b, g): G whole for them (a
+    # view cannot fold a sharded second dim)
+    xg = common.whole(xg, [1])
     gates, mask = _route_grouped(p, cfg, xg)
     # position of each token within its expert's capacity buffer (per group)
     pos_in_exp = torch.cumsum(mask, dim=2) - 1.0
@@ -375,13 +413,17 @@ def moe_ffn(p, cfg: ModelConfig, x):
         pos_in_exp.to(torch.int32)[..., None] == slots)    # [B,G,T,E,C]
     combine = dispatch * gates[..., None]
     dt = x.dtype
-    exp_in = torch.einsum("bgtec,bgtd->bgecd", dispatch.to(dt), xg)
+    exp_in = constrain_moe_expert(
+        torch.einsum("bgtec,bgtd->bgecd", dispatch.to(dt), xg))
     a = torch.einsum("bgecd,edf->bgecf", exp_in, p["wi"])
     h = torch.einsum("bgecd,edf->bgecf", exp_in, p["wg"])
     act = F.gelu(h, approximate="tanh") if cfg.act == "gelu" else F.silu(h)
-    exp_out = torch.einsum("bgecf,efd->bgecd", a * act, p["wo"])
-    out = torch.einsum("bgtec,bgecd->bgtd", combine.to(dt), exp_out)
-    out = out.reshape(B, S, D)
+    exp_out = constrain_moe_expert(
+        torch.einsum("bgecf,efd->bgecd", a * act, p["wo"]))
+    # on DTensors the combine folds e: E whole for it
+    out = torch.einsum("bgtec,bgecd->bgtd", combine.to(dt),
+                       common.whole(exp_out, [2]))
+    out = constrain_moe_groups(out.reshape(B, G, g, D)).reshape(B, S, D)
     if e.n_shared:
         out = out + common.mlp(p["shared"], x, cfg.act)
     return out

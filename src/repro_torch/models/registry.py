@@ -33,6 +33,15 @@ VLM, encoder-decoder).  ``train_loss`` (a batch of ``tokens`` and
 ``labels`` [B, S], a VLM's with ``vision_embeds``, an encoder-decoder's
 with ``audio_embeds``) is the JAX package's: the decoder stack in train
 mode, then ``chunked_ce_loss``.  Every family trains.
+
+``input_specs(shape)`` gives the batch of a ``SHAPES`` cell as meta
+tensors of the JAX package's shapes and dtypes (tokens int32).  A model
+built with ``device="meta"`` gives shape-only params and caches, at full
+config and without allocating (the spec functions of
+``distributed.sharding`` read them).  Params, caches and batches may be
+DTensors (``distributed.sharding.distribute``): the forward functions then
+run under ``sharding.mesh_aware`` while a mesh is active, and the kernel
+wrappers compute on local shards.
 """
 
 from __future__ import annotations
@@ -41,17 +50,34 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.configs.registry import get_config
+from repro_torch.distributed.sharding import mesh_aware
 from repro_torch.models import common, decoder
+
+
+def _vocab_whole(logits, labels):
+    """Logits [B, S, V] whole over V and labels [B, S] laid out as the
+    logits' B and S where they are DTensors: the gold logit's gather then
+    needs no communication (DTensor's rule would otherwise shard it over V,
+    leaving a result that its own redistribution cannot reduce)."""
+    logits = common.whole(logits, [-1])
+    if isinstance(logits, DTensor):
+        if not isinstance(labels, DTensor):
+            labels = DTensor.from_local(
+                labels, logits.device_mesh,
+                [Replicate()] * logits.device_mesh.ndim)
+        labels = labels.redistribute(logits.device_mesh, logits.placements)
+    return logits, labels
 
 
 def cross_entropy(logits, labels):
     """logits: [B, S, V] (any float dtype), labels: [B, S] integers."""
-    logits = logits.float()
+    logits, labels = _vocab_whole(logits.float(), labels)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (lse - gold).mean()
@@ -75,7 +101,8 @@ def chunked_ce_loss(params, cfg, x, labels):
     c = S // n
 
     def chunk(xi, yi):
-        logits = common.unembed(params["embed"], cfg, xi).float()
+        logits, yi = _vocab_whole(
+            common.unembed(params["embed"], cfg, xi).float(), yi)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, yi[..., None].long())[..., 0]
         return (lse - gold).sum()
@@ -97,6 +124,19 @@ class Model:
     prefill: Callable[[Any, Any], Any]
     decode: Callable[[Any, Any, Any], Any]
     init_cache: Callable[..., Any]
+    input_specs: Callable[[ShapeCell], Any]
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _model(cfg, device, init_params, train_loss, prefill, decode, init_cache,
+           input_specs):
+    """The ``Model``; its forward functions run under ``mesh_aware``."""
+    return Model(cfg, device, init_params, mesh_aware(train_loss),
+                 mesh_aware(prefill), mesh_aware(decode), init_cache,
+                 input_specs)
 
 
 def _ctx_of(cfg, batch):
@@ -137,8 +177,24 @@ def _build_decoder_model(cfg: ModelConfig, device: torch.device) -> Model:
         return decoder.init_decoder_cache(cfg, batch_size, buf_len, n_ctx,
                                           device)
 
-    return Model(cfg, device, init_params, train_loss, prefill, decode,
-                 init_cache)
+    def input_specs(shape: ShapeCell):
+        B, S = shape.global_batch, shape.seq_len
+        tok = _meta((B, S), torch.int32)
+        if shape.kind == "train":
+            batch = {"tokens": tok, "labels": tok}
+        elif shape.kind == "prefill":
+            batch = {"tokens": tok}
+        else:
+            batch = {"token": _meta((B, 1), torch.int32),
+                     "pos": _meta((), torch.int32)}
+        if cfg.family == "vlm" and shape.kind in ("train", "prefill"):
+            batch["vision_embeds"] = _meta(
+                (B, cfg.vision.n_vision_tokens, cfg.d_model),
+                common.dtype_of(cfg))
+        return batch
+
+    return _model(cfg, device, init_params, train_loss, prefill, decode,
+                  init_cache, input_specs)
 
 
 # ----------------------------------------------------------------------------
@@ -181,13 +237,29 @@ def _build_encdec_model(cfg: ModelConfig, device: torch.device) -> Model:
             cfg, batch_size, buf_len,
             ctx_len if ctx_len is not None else buf_len, device)
 
-    return Model(cfg, device, init_params, train_loss, prefill, decode,
-                 init_cache)
+    def input_specs(shape: ShapeCell):
+        B, S = shape.global_batch, shape.seq_len
+        tok = _meta((B, S), torch.int32)
+        audio = _meta((B, S, cfg.d_model), common.dtype_of(cfg))
+        if shape.kind == "train":
+            return {"tokens": tok, "labels": tok, "audio_embeds": audio}
+        if shape.kind == "prefill":
+            return {"tokens": tok, "audio_embeds": audio}
+        return {"token": _meta((B, 1), torch.int32),
+                "pos": _meta((), torch.int32)}
+
+    return _model(cfg, device, init_params, train_loss, prefill, decode,
+                  init_cache, input_specs)
 
 
 def build_model(arch_or_cfg, device=None) -> Model:
+    """The model on the card, on the CPU (``device="cpu"``) or on the meta
+    device (``device="meta"``: shape-only trees that nothing computes on;
+    ``resolve_device``, which every entry point goes through, refuses it)."""
     cfg = (arch_or_cfg if isinstance(arch_or_cfg, ModelConfig)
            else get_config(arch_or_cfg))
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     if cfg.family == "audio":
-        return _build_encdec_model(cfg, resolve_device(device))
-    return _build_decoder_model(cfg, resolve_device(device))
+        return _build_encdec_model(cfg, dev)
+    return _build_decoder_model(cfg, dev)

@@ -14,6 +14,13 @@ a layer), along the next dimension within it; the update is elementwise,
 so slicing changes none of its numbers.  The global norm sums each slice's
 squares in f32, then each leaf's slices and the leaves in order: a
 summation order of its own, as the JAX package's is XLA's.
+
+Leaves may be DTensors (a sharded train state).  The update then runs on
+each leaf's local shard (a param, its gradient and its moments laid out
+alike), and the global norm counts each element once: each leaf's local
+squares are summed as above, then summed over the mesh dims that shard
+the leaf (none for a replicated one).  On plain tensors, or on one device,
+the order of summation is the one above.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch._tree import tree_leaves
 
@@ -80,11 +89,37 @@ def _slices(t):
     return [t[i:i + rows] for i in range(0, t.shape[0], rows)]
 
 
+def _squares(leaf):
+    """The leaf's f32 sum of squares: over its slices, then the slices'
+    sums; a DTensor's over its local shard, then summed over the mesh dims
+    that shard it (pending sums reduced first)."""
+    if not isinstance(leaf, DTensor):
+        return torch.stack([s.float().square().sum()
+                            for s in _slices(leaf)]).sum()
+    mesh = leaf.device_mesh
+    leaf = leaf.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                    for p in leaf.placements])
+    total = _squares(leaf.to_local())
+    for m, p in enumerate(leaf.placements):
+        if isinstance(p, Shard):
+            dist.all_reduce(total, group=mesh.get_group(m))
+    return total
+
+
 def global_norm(tree):
     """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sums = [torch.stack([s.float().square().sum() for s in _slices(leaf)])
-            .sum() for leaf in tree_leaves(tree)]
+    sums = [_squares(leaf) for leaf in tree_leaves(tree)]
     return torch.sqrt(torch.stack(sums).sum())
+
+
+def _local(leaf, like):
+    """The local shard of DTensor ``leaf`` laid out as ``like``'s, or the
+    plain tensor itself."""
+    if not isinstance(leaf, DTensor):
+        return leaf
+    if list(leaf.placements) != list(like.placements):
+        leaf = leaf.redistribute(like.device_mesh, like.placements)
+    return leaf.to_local()
 
 
 @torch.no_grad()
@@ -115,8 +150,16 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
         if not (p.shape == g.shape == m.shape == v.shape):
             raise ValueError(f"leaf shapes differ: {p.shape}, {g.shape}, "
                              f"{m.shape}, {v.shape}")
+        matrix = p.dim() >= 2
+        if isinstance(p, DTensor):
+            if not (isinstance(m, DTensor) and isinstance(v, DTensor)
+                    and list(p.placements) == list(m.placements)
+                    == list(v.placements)):
+                raise ValueError("a sharded param and its moments must be "
+                                 f"laid out alike: {p.placements}")
+            p, g, m, v = (_local(t, p) for t in (p, g, m, v))
         for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
                                   _slices(v)):
-            upd(ps, gs, ms, vs, p.dim() >= 2)
+            upd(ps, gs, ms, vs, matrix)
     new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step}
     return params, new_state, {"lr": lr, "grad_norm": gn}

@@ -7,8 +7,12 @@ with respect to every param leaf (``torch.autograd.grad``, where JAX takes
 ``jax.value_and_grad``), then ``adamw_update``, which updates the state's
 tensors in place.  ``accum_steps > 1`` splits the batch into microbatches
 along its first dimension and accumulates their gradients in f32, as the
-JAX step's ``lax.scan`` does.  ``grad_shardings`` (the JAX step's ZeRO
-constraint) waits for the sharding slice.
+JAX step's ``lax.scan`` does.  ``grad_shardings`` (a tree of
+``distributed.sharding.to_shardings``'s ``(mesh, placements)`` pairs, the
+JAX step's ZeRO constraint) redistributes each gradient, and each
+microbatch's, to its sharding before the update; the state is then a tree
+of DTensors (``sharding.distribute``), and the step runs under
+``sharding.mesh_aware``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.distributed.sharding import mesh_aware
 from repro_torch.models.registry import Model
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state)
@@ -52,19 +57,30 @@ def _microbatch(batch, accum_steps, i):
     return out
 
 
-def loss_and_grads(model: Model, params, batch, accum_steps: int = 1):
+def _constrain(grads, grad_shardings):
+    if grad_shardings is None:
+        return grads
+    return tree_map(lambda g, s: g.redistribute(*s), grads, grad_shardings)
+
+
+def loss_and_grads(model: Model, params, batch, accum_steps: int = 1,
+                   grad_shardings=None):
     """The loss and the gradient tree of ``batch`` (the step before the
     update): one pass, or ``accum_steps`` microbatches whose losses and
-    gradients are summed in f32 and divided by ``accum_steps``."""
+    gradients are summed in f32 and divided by ``accum_steps``; each
+    gradient redistributed to ``grad_shardings`` where it is given."""
     if accum_steps == 1:
-        return _value_and_grad(model, params, batch)
+        loss, grads = _value_and_grad(model, params, batch)
+        return loss, _constrain(grads, grad_shardings)
     device = tree_leaves(params)[0].device
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-    gacc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    gacc = _constrain(tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params), grad_shardings)
     for i in range(accum_steps):
         loss, grads = _value_and_grad(model, params,
                                       _microbatch(batch, accum_steps, i))
+        grads = _constrain(grads, grad_shardings)
         for a, g in zip(tree_leaves(gacc), tree_leaves(grads)):
             a.add_(g.float())
         del grads
@@ -78,14 +94,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig | None = None,
                     grad_shardings=None, accum_steps: int = 1):
     """``train_step(state, batch) -> (state, metrics)``; metrics are the
     optimizer's {"lr", "grad_norm"} and the "loss", 0-d tensors."""
-    if grad_shardings is not None:
-        raise NotImplementedError("grad_shardings waits for the sharding "
-                                  "slice")
     opt_cfg = opt_cfg or AdamWConfig()
 
+    @mesh_aware
     def train_step(state, batch):
         loss, grads = loss_and_grads(model, state["params"], batch,
-                                     accum_steps)
+                                     accum_steps, grad_shardings)
         params, opt, metrics = adamw_update(opt_cfg, state["params"], grads,
                                             state["opt"])
         del grads

@@ -266,3 +266,35 @@ def test_entry_point_refuses_what_a_policy_cannot_run(monkeypatch):
                                             "--recharacterize", "online"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             schedule.main(["--jobs", "5", *argv])
+
+
+def test_subprocess_sharding_loads_no_jax_and_no_reference():
+    """The mesh and the sharding rules (``launch.mesh``,
+    ``distributed.sharding``): a (2, 2) mesh of a fake process group, the
+    specs of a shape-only model at full config, with nothing of JAX or the
+    JAX package loaded."""
+    code = (
+        "import sys\n"
+        "import torch, torch.distributed as dist\n"
+        "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+        "from repro_torch.distributed import sharding as sh\n"
+        "from repro_torch.launch.mesh import make_mesh\n"
+        "from repro_torch.models.registry import build_model\n"
+        "dist.init_process_group('fake', store=FakeStore(), rank=0, "
+        "world_size=4)\n"
+        "mesh = make_mesh((2, 2), ('data', 'model'), device_type='cpu')\n"
+        "m = build_model('qwen3-4b', device='meta')\n"
+        "specs = sh.param_pspecs(m.init_params(torch.Generator()), mesh, "
+        "sh.TRAIN_RULES)\n"
+        "assert tuple(specs['embed']['tok']) == ('model', 'data'), specs\n"
+        "dist.destroy_process_group()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ISOLATED"

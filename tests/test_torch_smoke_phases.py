@@ -309,3 +309,138 @@ def test_train_rwkv_phase_runs_on_the_cpu(rehearsal, capsys):
     assert profile["arch"] == cfg.name and profile["layers"] == 2
     assert {"wkv_forward", "wkv_backward"} <= set(
         profile["device_ms_by_kind"])
+
+
+def test_mesh_phase_runs_on_the_cpu(rehearsal, capsys):
+    """Phase 5h on the reduced qwen3-4b, phi3.5-moe and rwkv6 in bf16 with
+    remat on a (1, 1) mesh of a world-size-1 ``gloo`` group: every step's
+    loss and grad norm, every param, m and v leaf, and the serving run's
+    logits (the slot write and the one-hot write) bit-equal to the plain
+    tensors' through the same counted wrappers, the launches equal; the
+    group is gone afterwards and no mesh is left active."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as sh
+    cells = [(dataclasses.replace(train_configs(arch)[0], n_layers=n), steps)
+             for arch, n, steps in (("qwen3-4b", 2, 2),
+                                    ("phi3.5-moe-42b-a6.6b", 1, 1),
+                                    ("rwkv6-1.6b", 2, 1))]
+    serve = dataclasses.replace(reduced(get_config("qwen3-4b")),
+                                dtype="bfloat16")
+    paths = chip_smoke.mesh_phase(cells, serve, 2, 64, device="cpu")
+    assert not dist.is_initialized() and sh.get_active_mesh() is None
+    assert paths["mesh train qwen3-4b"]["flash_attention"] == 2 * 2 * 2
+    assert paths["mesh train qwen3-4b"]["flash_attention_bwd"] == 2 * 2
+    assert paths["mesh train phi3.5-moe-42b-a6.6b"]["moe_routing_bwd"] == 1
+    assert paths["mesh train rwkv6-1.6b"]["rwkv_scan_bwd"] == 2
+    assert paths["mesh serve qwen3-4b"] == {
+        "flash_attention": 2 * 2, "decode_attention": 2 * 2 * 8}
+    out = capsys.readouterr().out
+    assert out.count("mesh_train ") == 3 and "mesh_serve " in out
+
+
+def test_children_take_turns_in_the_order_they_were_started():
+    """``Children``: every child forked at once, at most ``limit`` running,
+    in the order started; each result comes back to its waiter, and a
+    child's failure fails its waiter."""
+    import time
+    children = chip_smoke.Children(2)
+
+    def task(i):
+        t0 = time.monotonic()
+        time.sleep(0.3)
+        return i, t0, time.monotonic()
+
+    waits = [children.start(lambda i=i: task(i)) for i in range(5)]
+    got = [w() for w in waits]
+    assert [g[0] for g in got] == list(range(5))
+    starts = [g[1] for g in got]
+    assert starts == sorted(starts)
+    for _, t0, _ in got:
+        assert sum(s <= t0 < e for _, s, e in got) <= 2
+    failing = chip_smoke.Children(1).start(lambda: 1 / 0)
+    with pytest.raises(SystemExit, match="ZeroDivisionError"):
+        failing()
+
+
+def test_phase3_runs_are_held_to_their_forked_references(monkeypatch,
+                                                         capsys):
+    """Phase 3's orchestration at a small size: each run's CPU and numpy
+    references forked first (``main_path_references``,
+    ``resident_references``), the card runs after (on the CPU here, each
+    wrapper call counted as a launch, patched in after the forks so the
+    children count none), every card run held to its forked CPU run; a card
+    run that differs from its reference fails."""
+    from repro_torch.core import scoring
+    from repro_torch.core.offline import characterize
+    from repro_torch.core.workers import synth_fleet
+    from repro_torch.core.workload import scenario
+    from repro_torch.kernels import scheduler_score as ss
+    torch.set_num_threads(1)
+    cd = characterize()
+    fleet = synth_fleet(2, 4, 4)
+    jobs = scenario(cd, "mmpp", n_jobs=120, fleet=fleet, seed=0)
+    children = chip_smoke.Children(2)
+    refs = {"job-v1": chip_smoke.main_path_references(
+                children, cd, fleet, jobs, "job", False),
+            "job-resident": chip_smoke.resident_references(
+                children, cd, fleet, jobs, "job", chip_smoke.synergai),
+            "short": chip_smoke.resident_references(
+                children, cd, fleet, jobs, "job", chip_smoke.synergai)}
+    host = chip_smoke.start_comparison(children, cd, fleet, jobs)
+    make = scoring.make_torch_score_fn
+    monkeypatch.setattr(scoring, "make_torch_score_fn",
+                        lambda *a, device=None, **kw: make(*a, device="cpu",
+                                                           **kw))
+    v1 = counting(scoring.scheduler_score)
+    monkeypatch.setattr(scoring, "scheduler_score", v1)
+    for name in ("tick_score", "greedy_place"):
+        monkeypatch.setattr(ss, name, counting(getattr(ss, name)))
+    launches, _, _ = chip_smoke.main_path_run(
+        "job-v1", cd, fleet, jobs, "job", False, v1, refs["job-v1"])
+    assert launches > 0
+    run = chip_smoke.resident_run("job-resident", cd, fleet, jobs, "job",
+                                  chip_smoke.synergai, refs["job-resident"])
+    assert run.launches["tick_score_kernel"] > 0
+    with pytest.raises(SystemExit, match="card results differ"):
+        chip_smoke.resident_run("short", cd, fleet, jobs[:-1], "job",
+                                chip_smoke.synergai, refs["short"])
+    chip_smoke.comparison(jobs, fleet, run, host)
+    out = capsys.readouterr().out
+    assert out.count("main_path ") == 2 and "comparison " in out
+    assert '"identical_to_cpu_run": true' in out
+
+
+def test_the_paper_experiments_hold_their_forked_references(monkeypatch,
+                                                            capsys):
+    """3g's paper experiments with every run off the card made in a child
+    (``paper_references``): the card's resident SynergAI (the CPU here,
+    each tick kernel call counted) held to the child's CPU run, seed by
+    seed; the totals are those of running every policy in this process."""
+    from repro_torch.core import scoring
+    from repro_torch.core.job import make_experiment
+    from repro_torch.core.metrics import summarize
+    from repro_torch.core.offline import characterize
+    from repro_torch.core.scheduler import SynergAI
+    from repro_torch.core.simulator import Simulator
+    from repro_torch.kernels import scheduler_score as ss
+    torch.set_num_threads(1)
+    cd = characterize()
+    monkeypatch.setattr(chip_smoke, "EXPERIMENT_SEEDS", (1,))
+    refs = chip_smoke.Children(1).start(
+        lambda: chip_smoke.paper_references(cd))
+    make = scoring.make_torch_score_fn
+    monkeypatch.setattr(scoring, "make_torch_score_fn",
+                        lambda *a, device=None, **kw: make(*a, device="cpu",
+                                                           **kw))
+    for name in ("tick_score", "greedy_place"):
+        monkeypatch.setattr(ss, name, counting(getattr(ss, name)))
+    launches = chip_smoke.paper_experiments(cd, refs)
+    assert launches["tick_score_kernel"] > 0
+    line = capsys.readouterr().out.split("paper ", 1)[1]
+    totals = __import__("json").loads(line)["totals"]
+    want = 0
+    for _, demand, freq in chip_smoke.EXPERIMENTS:
+        res = Simulator(cd, SynergAI(), seed=1).run(
+            make_experiment(cd, demand, freq, seed=1))
+        want += summarize(res)["violations"]
+    assert totals["SynergAI-numpy"] == want

@@ -322,10 +322,54 @@ def test_train_step_matches_jax_over_three_steps(arch, accum_steps):
     assert int(state["opt"]["step"]) == 3
 
 
-def test_grad_shardings_wait_for_the_sharding_slice():
-    _, _, _, tm = both("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        make_train_step(tm, grad_shardings=object())
+def test_grad_shardings_wait_for_the_sharding_slice(tmp_path):
+    """The sharding slice is in: ``make_train_step`` takes
+    ``grad_shardings`` (``to_shardings`` of ``opt_pspecs``).  On a (1, 1)
+    mesh of a one-rank ``gloo`` group, two steps of the state distributed
+    by ``TRAIN_RULES`` and ``opt_pspecs`` take each gradient to its
+    sharding and equal the plain steps bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    jcfg, jm, tcfg, tm = both("qwen3-4b")
+    jstate = jax.tree.map(np.asarray,
+                          jax_init_state(jm, jax.random.PRNGKey(0)))
+    opt = optimizer.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    batches = [tbatch(batch_of(jcfg, 4, 16, seed=30 + i)) for i in range(2)]
+    plain = train_state_from_jax(jstate, tcfg, device="cpu")
+    step = make_train_step(tm, opt)
+    want = [step(plain, b)[1] for b in batches]
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        state = train_state_from_jax(jstate, tcfg, device="cpu")
+        p_sh = sh.to_shardings(sh.param_pspecs(state["params"], mesh,
+                                               sh.TRAIN_RULES), mesh)
+        o_sh = sh.to_shardings(sh.opt_pspecs(state["params"], mesh), mesh)
+        state = {"params": sh.distribute(state["params"], p_sh),
+                 "opt": {"m": sh.distribute(state["opt"]["m"], o_sh),
+                         "v": sh.distribute(state["opt"]["v"], o_sh),
+                         "step": state["opt"]["step"]}}
+        sstep = make_train_step(tm, opt, grad_shardings=o_sh)
+        sh.set_active_mesh(mesh)
+        try:
+            got = [sstep(state, sh.distribute(b, sh.to_shardings(
+                sh.batch_pspecs(b, mesh), mesh)))[1] for b in batches]
+        finally:
+            sh.set_active_mesh(None)
+        for w, g in zip(want, got):
+            for key in ("loss", "grad_norm", "lr"):
+                v = g[key]
+                v = v.full_tensor() if isinstance(v, DTensor) else v
+                assert torch.equal(v, w[key]), key
+        for (key, a), (_, b) in zip(tree_leaves_with_paths(plain),
+                                    tree_leaves_with_paths(state)):
+            b = b.full_tensor() if isinstance(b, DTensor) else b
+            assert torch.equal(a, b), key
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
