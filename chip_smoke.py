@@ -40,6 +40,15 @@ Phases, in order; any failure exits non-zero:
        library yardstick; three calls in a row bit-identical (the merge of
        the splits runs in split order) with the ticket counters back at 0,
        and the profiler showing one ``decode_attention_*`` kernel a call;
+       its log-sum-exp instances (``DECODE_LSE_HOLDS``: every key masked
+       at k_valid 0, k_valid on a split boundary, G = 5) with the f32
+       output rounded bit-equal to the output without lse and the lse
+       within ``DECODE_LSE_TOL`` of ``torch.logsumexp``, both instances
+       timed; and two streams running ``STREAM_CALLS`` calls each at once,
+       every output bit-equal to the call alone, the tickets (one buffer a
+       stream) back at 0, with the launches that overlapped one on the
+       other stream counted from the profiler's trace, and a control with
+       one buffer forced on both streams reported;
    (e) ``rwkv_scan`` at [B, S, H, hd] = [4, 1024, 32, 64] from a zero state
        (the RWKV serving prefill), [4, 1, 32, 64] from a random state (a
        decode step), [2, 1000, 8, 64] and [1, 515, 2, 64] from a random
@@ -272,9 +281,17 @@ Phases, in order; any failure exits non-zero:
    each kernel's launches equal; qwen3-4b on the same 4 layers served (4
    requests of batch 4 x 1,024 and 8 decode steps) on plain tensors, on
    DTensors (params by ``PARAM_RULES``, caches by ``cache_pspecs``) and
-   again with ``ONEHOT_CACHE_UPDATE``: every step's logits bit-equal, the
-   flash and decode-attention launches equal; the seconds a step and the
-   host's seconds of each run;
+   again with ``ONEHOT_CACHE_UPDATE`` and with ``SHARDED_DECODE_ATTN`` (the
+   sharded flash-decode on the one shard, its merge over the one-rank
+   ``model`` group): every step's logits bit-equal, the flash and
+   decode-attention launches equal, every decode step of every layer
+   merged and a profiled step's decode kernels all the lse instance; the
+   seconds a step and the host's seconds of each run;
+5i. the dry run (``python -m repro_torch.launch.dryrun``, a subprocess) of
+   h2o-danube-1.8b ``decode_32k`` on both production meshes (256 and 512
+   fake ranks, meta tensors, no card), without and with ``--opt``: every
+   record ``ok``, the matmul FLOPs plus the decode kernel's equal to the
+   JAX package's count (``DRYRUN_FLOPS``);
 7. the card's floor for one launch (the profiler's device time of a
    one-element ``torch.add``), the kernels at their paths' mean shapes, one
    JSON line with each kernel's launches and times, then the card's line
@@ -343,6 +360,15 @@ DECODE_HOLDS = ((4, 1064, 32, 8, 128, 1), (4, 1064, 32, 8, 128, 1025),
                 (4, 1024, 25, 5, 64, 1024), (4, 1064, 25, 5, 64, 1025),
                 (4, 1064, 32, 8, 128, 1024))
 DECODE_REPEATS = 3        # calls that must agree bit for bit
+# the decode kernel's log-sum-exp instances (B, S, H, K, hd, k_valid): every
+# key masked, a k_valid on a split boundary, G = 5 at one split short of S
+DECODE_LSE_HOLDS = ((4, 1064, 32, 8, 128, 0), (4, 1064, 32, 8, 128, 1024),
+                    (2, 1000, 25, 5, 64, 999))
+DECODE_LSE_TOL = 1e-5     # absolute, against torch.logsumexp
+STREAM_CALLS = 8          # calls on each of two streams at once
+# both streams wait behind a spin of this many clock cycles (~10 ms) while
+# every call is queued, so that their kernels meet on the card
+STREAM_HOLD_CYCLES = 20_000_000
 # the flash backward (B, S, H, K, hd, window, causal): qwen3-4b's training
 # shape (the JAX package's train_4k length, batch cut to 2), the serving
 # shape, seamless-m4t's encoder and cross shape (non-causal) and its
@@ -1905,7 +1931,7 @@ def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
     torch.cuda.synchronize()
     if not all(torch.equal(outs[0], o) for o in outs[1:]):
         raise SystemExit(f"FAIL {name}: {DECODE_REPEATS} calls differ")
-    if bool(da._counter_buffers[q.device].any()):
+    if not da.tickets_at_zero(q.device):
         raise SystemExit(f"FAIL {name}: the ticket counters are not 0")
     device, api = kernels_per_call(
         lambda: da.decode_attention(q, k, v, k_valid))
@@ -1919,6 +1945,130 @@ def hold_decode(B, S, H, K, hd, k_valid, dtype_name, rate, label=""):
     print(f"hold {name}: {DECODE_REPEATS} calls bit-identical, one kernel a "
           f"call, {r['n_split']} splits", flush=True)
     return r
+
+
+def hold_decode_lse(B, S, H, K, hd, k_valid, dtype_name, rate):
+    """The decode kernel's log-sum-exp instance: its f32 output rounded to
+    the dtype bit-equal to the instance without lse, its lse within
+    ``DECODE_LSE_TOL`` of the plain version's ``torch.logsumexp`` of the
+    masked scores, one launch a call, the tickets back at 0; both
+    instances timed."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    dtype = getattr(torch, dtype_name)
+    q, k, v = attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype, S + 3 * hd)
+    name = (f"decode_attention lse (B, S, H, K, hd, k_valid)="
+            f"{(B, S, H, K, hd, k_valid)} {dtype_name}")
+    before = da.decode_attention.launches
+    out, lse = da.decode_attention(q, k, v, k_valid, return_lse=True)
+    plain_out = da.decode_attention(q, k, v, k_valid)
+    torch.cuda.synchronize()
+    want_out, want_lse = da.decode_attention_plain(q, k, v, k_valid,
+                                                   return_lse=True)
+    lse_err = float((lse - want_lse).abs().max())
+    out_err = float((out - want_out).abs().max())
+    kv_end = min(k_valid, S) if k_valid >= 1 else S
+    esize = q.element_size()
+    bound_ms, bound_by = attn_bound(
+        4 * B * H * kv_end * hd,
+        esize * (2 * B * kv_end * K * hd + B * H * hd) + 4 * B * H * hd
+        + 4 * B * H, dtype_name, rate)
+    r = {"bit_equal_to_no_lse": bool(torch.equal(out.to(dtype), plain_out)),
+         "lse_max_abs_err": lse_err, "out_max_abs_err": out_err,
+         "launches": da.decode_attention.launches - before,
+         "tickets_at_zero": da.tickets_at_zero(q.device),
+         "lse_finite": bool(torch.isfinite(lse).all()),
+         "ms": time_ms(lambda: da.decode_attention(q, k, v, k_valid,
+                                                   return_lse=True)),
+         "no_lse_ms": time_ms(lambda: da.decode_attention(q, k, v, k_valid)),
+         "device_ms": device_ms(lambda: da.decode_attention(
+             q, k, v, k_valid, return_lse=True), "decode_attention_"),
+         "no_lse_device_ms": device_ms(lambda: da.decode_attention(
+             q, k, v, k_valid), "decode_attention_"),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "n_split": da.plan_splits(B, K, H // K, kv_end, hd)}
+    print(f"hold {name}: " + json.dumps(r), flush=True)
+    if (not r["bit_equal_to_no_lse"] or lse_err > DECODE_LSE_TOL
+            or r["launches"] != 2 or not r["tickets_at_zero"]
+            or not r["lse_finite"]):
+        raise SystemExit(f"FAIL {name}: {r}")
+    return r
+
+
+def stream_overlap(prof, kernel_name):
+    """From a profiler trace: the launches of ``kernel_name`` on each stream,
+    and how many of them ran, for part of their time at least, while a
+    launch on another stream ran."""
+    from torch.autograd import DeviceType
+    spans = [(getattr(evt, "device_resource_id", None) or evt.thread,
+              evt.time_range.start, evt.time_range.end)
+             for evt in prof.events()
+             if evt.device_type == DeviceType.CUDA and kernel_name in evt.name]
+    per_stream = {}
+    for st, _, _ in spans:
+        per_stream[st] = per_stream.get(st, 0) + 1
+    overlapped = sum(
+        any(o != st and a < e and b < d for o, b, e in spans)
+        for st, a, d in spans)
+    return {"launches_by_stream": sorted(per_stream.values()),
+            "overlapped": overlapped}
+
+
+def hold_decode_streams():
+    """Two streams of one device run ``decode_attention`` at once on
+    different inputs, ``STREAM_CALLS`` calls each: every output bit-equal
+    to the same call run alone, the tickets (one buffer a stream) back at
+    0.  Both streams wait behind a spin (``STREAM_HOLD_CYCLES``) until every
+    call is queued, so that their kernels meet; the profiler's trace says
+    how many launches ran while one on the other stream did.  A control
+    runs the same calls with one
+    ticket buffer forced on both streams (the layout before the buffers
+    were kept per stream) and reports, without failing, what it gave."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as da
+    shapes = (DECODE_HOLDS[-1], DECODE_HOLDS[4])
+    inputs = [attn_inputs((B, 1, H, hd), (B, S, K, hd), torch.bfloat16, i)
+              + [kv] for i, (B, S, H, K, hd, kv) in enumerate(shapes)]
+    alone = [da.decode_attention(*x) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+
+    def both_streams():
+        outs = [[] for _ in inputs]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for st in streams:
+                with torch.cuda.stream(st):
+                    torch.cuda._sleep(STREAM_HOLD_CYCLES)
+            for _ in range(STREAM_CALLS):
+                for i, (x, st) in enumerate(zip(inputs, streams)):
+                    with torch.cuda.stream(st):
+                        outs[i].append(da.decode_attention(*x))
+            torch.cuda.synchronize()
+        equal = [all(torch.equal(o, alone[i]) for o in outs[i])
+                 for i in range(len(inputs))]
+        return equal, stream_overlap(prof, "decode_attention")
+
+    equal, overlap = both_streams()
+    zero = da.tickets_at_zero(inputs[0][0].device)
+    per_stream = da._counters
+    shared = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    da._counters = lambda device, stream, n: shared
+    try:
+        c_equal, c_overlap = both_streams()
+    finally:
+        da._counters = per_stream
+    control = {"bit_equal_to_alone": c_equal,
+               "tickets_at_zero": not bool(shared.any()),
+               "overlap": c_overlap}
+    line = {"shapes": [list(x) for x in shapes], "calls_per_stream":
+            STREAM_CALLS, "bit_equal_to_alone": equal,
+            "tickets_at_zero": zero, "overlap": overlap,
+            "control_one_shared_buffer": control}
+    print("hold decode_attention two streams: " + json.dumps(line),
+          flush=True)
+    if not all(equal) or not zero:
+        raise SystemExit(f"FAIL decode_attention on two streams: {line}")
 
 
 def sdpa_mask(S, window, causal):
@@ -2529,21 +2679,31 @@ def held_steps(run, ref, bound):
             "over_bound": over}
 
 
-def parity(model, params, toks, dtype_name, wrappers, plains, floor=None):
+def checked_plain_run(model, params, toks, wrappers, plains):
+    """``plain_run``, failing if it launched one of ``wrappers``' kernels."""
+    counts = launch_counts(wrappers)
+    run = plain_run(model, params, toks, plains)
+    if launch_counts(wrappers) != counts:
+        raise SystemExit("FAIL parity: the plain run launched a kernel")
+    return run
+
+
+def parity(model, params, toks, dtype_name, wrappers, plains, floor=None,
+           ref=None):
     """The same prompts through the kernels and through their plain
     versions (``plains``: the names the model looks up, patched to the
     plain versions), held by ``held_steps`` within ``LOGIT_BOUND``, or
     within ``floor`` where one is given and larger (the plain bf16 run's
     own distance from the f32 function, ``bf16_floor``).  ``wrappers``: the
-    kernels whose launch counts show which run is which."""
+    kernels whose launch counts show which run is which.  ``ref``: the
+    plain run of these prompts where it was made already
+    (``checked_plain_run``)."""
     counts = launch_counts(wrappers)
     run_k = traced_generate(model, params, toks)
     if launch_counts(wrappers) == counts:
         raise SystemExit("FAIL parity: the kernel run launched no kernel")
-    counts = launch_counts(wrappers)
-    run_p = plain_run(model, params, toks, plains)
-    if launch_counts(wrappers) != counts:
-        raise SystemExit("FAIL parity: the plain run launched a kernel")
+    run_p = ref if ref is not None else checked_plain_run(
+        model, params, toks, wrappers, plains)
     bound = LOGIT_BOUND[dtype_name]
     if floor is not None:
         bound = max(bound, floor)
@@ -2560,16 +2720,13 @@ def parity(model, params, toks, dtype_name, wrappers, plains, floor=None):
     return line
 
 
-def bf16_floor(model, params, model32, params32, toks, plains):
+def bf16_floor(name, run16, run32):
     """How far the plain bf16 run itself is from the function: the plain
-    versions' bf16 run held by ``held_steps`` to their f32 run (the same
-    weights cast, TF32 off) on the same prompts, its worst max |delta| /
-    max |f32| up to each row's first parting."""
-    line = held_steps(plain_run(model, params, toks, plains),
-                      plain_run(model32, params32, toks, plains),
-                      LOGIT_BOUND["bfloat16"])
-    print("bf16_floor " + json.dumps({"arch": model.cfg.name, **line}),
-          flush=True)
+    versions' bf16 run ``run16`` held by ``held_steps`` to their f32 run
+    ``run32`` (the same weights cast, TF32 off) on the same prompts, its
+    worst max |delta| / max |f32| up to each row's first parting."""
+    line = held_steps(run16, run32, LOGIT_BOUND["bfloat16"])
+    print("bf16_floor " + json.dumps({"arch": name, **line}), flush=True)
     return line["worst_rel_delta"]
 
 
@@ -3114,16 +3271,19 @@ def serve_hymba(hcfg, device=None):
     model32 = build_model(dataclasses.replace(hcfg, dtype="float32"),
                           device=hmodel.device)
     params32 = tree_map(lambda t: t.float(), params)  # A_log is f32 already
-    floor = bf16_floor(hmodel, params, model32, params32, prompts[0],
-                       attention_plains())
+    # each plain run made once: the floor's and the parity holds' reference
+    plain16, plain32 = (checked_plain_run(m, p, prompts[0], attn,
+                                          attention_plains())
+                        for m, p in ((hmodel, params), (model32, params32)))
+    floor = bf16_floor(hcfg.name, plain16, plain32)
     parity(hmodel, params, prompts[0], "bfloat16", attn, attention_plains(),
-           floor=floor)
+           floor=floor, ref=plain16)
     profile = decode_profile(hmodel, params, prompts[0])
     prefill = prefill_profile(hmodel, params, prompts[0])
     del params
     torch.cuda.empty_cache()
     parity(model32, params32, prompts[0], "float32", attn,
-           attention_plains())
+           attention_plains(), ref=plain32)
     del params32, prompts
     torch.cuda.empty_cache()
     return launches, profile, prefill
@@ -3943,10 +4103,15 @@ def mesh_serve(mesh, cfg, device=None):
     """Serving on the (1, 1) mesh: ``REQUESTS`` requests of batch
     ``SERVE_BATCH`` x ``PROMPT`` and ``MESH_GEN`` decode steps of ``cfg``
     (at full width, bf16, its depth cut) on plain tensors, on
-    DTensors (params by ``PARAM_RULES``, caches by ``cache_pspecs``) and on
-    DTensors again with ``ONEHOT_CACHE_UPDATE``: every step's logits and
-    the flash and decode-attention launches bit-equal, the plain run's
-    greedy tokens fed to all three.  Returns the mesh runs' launches."""
+    DTensors (params by ``PARAM_RULES``, caches by ``cache_pspecs``), on
+    DTensors again with ``ONEHOT_CACHE_UPDATE`` and once more with
+    ``SHARDED_DECODE_ATTN`` (the sharded flash-decode: the kernel's
+    log-sum-exp instance on the one shard, merged over the one-rank
+    ``model`` group): every step's logits and the flash and
+    decode-attention launches bit-equal, the plain run's greedy tokens fed
+    to all four; in the sharded run every decode step of every layer
+    merges and, on the card, every decode-attention kernel of a profiled
+    step is the lse instance.  Returns the mesh runs' launches by run."""
     import torch
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import layers as model_layers
@@ -3973,6 +4138,7 @@ def mesh_serve(mesh, cfg, device=None):
         sharded = name != "plain"
         p = dparams if sharded else params
         logits_all, host, wall = [], [], []
+        profiled = name == "mesh sharded" and device is None   # the card
         for r, prompt in enumerate(prompts):
             batch = {"tokens": prompt}
             (logits, caches), h, w = timed_call(
@@ -3989,6 +4155,32 @@ def mesh_serve(mesh, cfg, device=None):
                                      .to(torch.int32)[:, None])
                 step = {"token": tokens[r][i]}
                 step = on_mesh(step) if sharded else step
+                if profiled:
+                    # the first step once more, uncounted, under the
+                    # profiler: its decode kernels (it writes the same
+                    # keys and values into the same slot).  The device
+                    # side of a trace now and then misses a kernel: the
+                    # step is traced again, up to 3 times, until it shows
+                    # one a layer
+                    profiled = False
+                    before = {k: fn.launches for k, fn in wrappers.items()}
+                    n_merged = len(merged)
+                    for _ in range(3):
+                        with torch.profiler.profile(activities=[
+                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+                            model.decode(p, caches,
+                                         {**step, "pos": PROMPT + i})
+                            torch.cuda.synchronize()
+                        decode_kernels[:] = [
+                            evt.name for evt in prof.events()
+                            if "decode_attention_kernel" in evt.name
+                            and getattr(evt, "device_type", None)
+                            == torch.autograd.DeviceType.CUDA]
+                        if len(decode_kernels) == cfg.n_layers:
+                            break
+                    for k, fn in wrappers.items():
+                        fn.launches = before[k]
+                    del merged[n_merged:]
                 (logits, caches), h, w = timed_call(
                     model.decode, p, caches, {**step, "pos": PROMPT + i})
                 host.append(h)
@@ -3998,37 +4190,60 @@ def mesh_serve(mesh, cfg, device=None):
         return logits_all, host, wall
 
     tokens = [[] for _ in prompts]
-    runs = {}
-    for name in ("plain", "mesh", "mesh onehot"):
-        for fn in wrappers.values():
-            fn.launches = 0
+    runs, decode_kernels, merged = {}, [], []
+    sharded_fn = model_layers.sharded_decode_attention
+
+    def counted(*args):
+        out = sharded_fn(*args)
+        merged.append(out is not None)
+        return out
+
+    for name in ("plain", "mesh", "mesh onehot", "mesh sharded"):
         with (active(mesh) if name != "plain" else ExitStack()):
             model_layers.ONEHOT_CACHE_UPDATE = name == "mesh onehot"
+            model_layers.SHARDED_DECODE_ATTN = name == "mesh sharded"
+            model_layers.sharded_decode_attention = counted
             try:
+                for fn in wrappers.values():
+                    fn.launches = 0
                 logits, host, wall = serve(name, tokens)
+                launches = launch_counts(wrappers)
             finally:
                 model_layers.ONEHOT_CACHE_UPDATE = False
+                model_layers.SHARDED_DECODE_ATTN = False
+                model_layers.sharded_decode_attention = sharded_fn
         runs[name] = dict(logits=logits, host=host, wall=wall,
-                          launches=launch_counts(wrappers))
+                          launches=launches)
     ref = runs["plain"]
     held = {name: all(torch.equal(a, b) for ra, rb in zip(
         ref["logits"], run["logits"]) for a, b in zip(ra, rb))
         for name, run in runs.items() if name != "plain"}
+    lse_instance = [("true" in n or "Lb1E" in n) for n in decode_kernels]
     line = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
             "requests": REQUESTS, "batch": [SERVE_BATCH, PROMPT],
             "decode_steps": MESH_GEN,
             "logits_bit_equal_to_plain": held,
             "launches": {k: r["launches"] for k, r in runs.items()},
+            "sharded_decode": {
+                "merges": sum(merged), "calls": len(merged),
+                "profiled_step_decode_kernels": len(decode_kernels),
+                "lse_instance": all(lse_instance) and bool(lse_instance),
+                "kernel_names": sorted(set(decode_kernels))},
             "decode_step_s": {k: statistics.fmean(r["wall"])
                               for k, r in runs.items()},
             "decode_step_host_s": {k: statistics.fmean(r["host"])
                                    for k, r in runs.items()}}
     print("mesh_serve " + json.dumps(line), flush=True)
+    want_merges = cfg.n_layers * MESH_GEN * REQUESTS
     if (not all(held.values())
             or any(r["launches"] != ref["launches"] for r in runs.values())
-            or not all(ref["launches"].values())):
+            or not all(ref["launches"].values())
+            or merged != [True] * want_merges
+            or (device is None and len(decode_kernels) != cfg.n_layers)
+            or not all(lse_instance)):
         raise SystemExit(f"FAIL mesh serve {cfg.name}: {line}")
-    return runs["mesh"]["launches"]
+    return {"": runs["mesh"]["launches"],
+            " sharded-decode": runs["mesh sharded"]["launches"]}
 
 
 def mesh_phase(train_cells, serve_cfg, B, S, device=None):
@@ -4042,12 +4257,71 @@ def mesh_phase(train_cells, serve_cfg, B, S, device=None):
             paths[f"mesh train {cfg.name}"] = mesh_train(mesh, cfg, steps, B,
                                                          S, device)
             torch.cuda.empty_cache()
-        paths[f"mesh serve {serve_cfg.name}"] = mesh_serve(mesh, serve_cfg,
-                                                           device)
+        for run, launches in mesh_serve(mesh, serve_cfg, device).items():
+            paths[f"mesh serve {serve_cfg.name}{run}"] = launches
         torch.cuda.empty_cache()
     print(f"mesh card: {card_line() if device is None else 'cpu'}",
           flush=True)
     return paths
+
+
+DRYRUN_CELL = ("h2o-danube-1.8b", "decode_32k")
+DRYRUN_FLOPS = 576_632_913_920   # the JAX package's dot_general count
+
+
+def dryrun_phase():
+    """Phase 5i: ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL``
+    with ``--mesh both``, without and with ``--opt``, in two subprocesses
+    at once (this process's default group is not the fake one they need;
+    they use no card): every record
+    ``ok`` on 256 and 512 fake ranks, its matmul FLOPs plus the decode
+    kernel's equal to the JAX package's count, the global counts the same
+    with and without the switch.  Returns the records."""
+    import tempfile
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    records = {}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        procs = {opt: subprocess.Popen(      # both at once: meta, no card
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", arch, "--shape", shape, "--mesh", "both",
+             "--out", out, *opt], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for opt in ((), ("--opt",))}
+        for opt, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if proc.returncode != 0:
+                raise SystemExit(f"FAIL dry run {opt}: rc {proc.returncode}"
+                                 f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
+            print(f"dryrun {' '.join(opt) or '(baseline)'}: done after "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for path in sorted(Path(out).glob("*.json")):
+            records[path.stem] = json.loads(path.read_text())
+    keys = ("status", "n_devices", "run_s", "dot_flops_global",
+            "kernel_flops_global", "bytes_global",
+            "collective_bytes_per_device", "collective_counts", "memory")
+    for name, rec in records.items():
+        print(f"dryrun {name}: " + json.dumps({k: rec.get(k) for k in keys}),
+              flush=True)
+    want = {f"{arch}__{shape}__{m}{t}" for m in ("single", "multi")
+            for t in ("", "__opt")}
+    flops = {name: rec.get("dot_flops_global", 0)
+             + rec.get("kernel_flops_global", {}).get("decode_attention", 0)
+             for name, rec in records.items()}
+    if (set(records) != want
+            or any(r["status"] != "ok" for r in records.values())
+            or any(f != DRYRUN_FLOPS for f in flops.values())
+            or {records[n]["n_devices"] for n in want if "single" in n}
+            != {256}
+            or {records[n]["n_devices"] for n in want if "multi" in n}
+            != {512}):
+        raise SystemExit(f"FAIL dry run: {sorted(records)}, flops {flops}")
+    return records
 
 
 def phase_done(name, t0):
@@ -4174,7 +4448,10 @@ def main() -> int:
             r = hold_decode(*shape, dtype_name, rate)
             attn_worst["decode_attention"] = max(
                 attn_worst["decode_attention"], r["max_abs_err"])
+        for shape in DECODE_LSE_HOLDS:
+            hold_decode_lse(*shape, dtype_name, rate)
         torch.cuda.empty_cache()
+    hold_decode_streams()
     t_phase = phase_done("2c-2d (attention kernels)", t_phase)
 
     # 2e. the WKV scan against its plain version, bit for bit
@@ -4472,6 +4749,10 @@ def main() -> int:
         dataclasses.replace(get_config(MESH_SERVE[0]),
                             n_layers=MESH_SERVE[1]), TRAIN_BATCH, TRAIN_SEQ)
     t_phase = phase_done("5h (one-device mesh)", t_phase)
+
+    # 5i. the dry run of the production meshes on meta tensors, no card
+    dryrun_phase()
+    t_phase = phase_done("5i (dry run)", t_phase)
 
     # 7. the launch floor, the kernels at their paths' mean shapes, and the
     # result

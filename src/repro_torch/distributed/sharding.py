@@ -16,8 +16,10 @@ trees (nested dicts and lists of tensors, shape-only ones on the meta
 device).  ``placements`` is the one conversion from a spec to DTensor
 placements.  The activation constraints (``constrain_*``) are the identity
 off a mesh and on plain tensors; on a DTensor they redistribute it to the
-JAX function's spec.  The JAX package's ``sharded_decode_attention`` (a
-``shard_map`` flash-decode) has no counterpart here yet.
+JAX function's spec.  ``sharded_decode_attention`` is the JAX package's
+``shard_map`` flash-decode, on ``local_map``: each rank attends over its own
+shard of a sequence-sharded cache and the shards are merged by their
+softmax statistics over the ``model`` process group.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import fnmatch
 import functools
 import math
 
+import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
@@ -333,6 +336,97 @@ def distribute(tree, shardings):
         return None
     mesh, pl = shardings
     return distribute_tensor(tree, mesh, pl)
+
+
+# ---------------------------------------------------------------------------
+# the sharded flash-decode
+
+
+def sharded_decode_attention(q, k, v, k_valid):
+    """Distributed flash-decode over a sequence-sharded KV cache.
+
+    Attention of one token against a cache whose sequence is sharded over
+    ``model`` otherwise makes the cache whole on every rank (the kernel
+    wrappers' ``local_placements`` keep only batch and heads sharded): 2.1
+    GB a layer a step on qwen3-32b decode_32k in the JAX package's count.
+    Here each rank attends over its own shard, and the shards' (m, l, o)
+    are merged with a MAX and two SUM all-reduces over the ``model``
+    process group: O(B * H * hd) bytes, not O(cache).
+
+    q: [B, 1, H, hd]; k: [B, S, K, hd]; v: [B, S, K, hd_v]; DTensors.
+    q is laid out with its batch over the DP axes where B divides (else
+    whole) and whole elsewhere; the cache alike on its batch and with its
+    sequence sharded over ``model``.  Returns [B, 1, H, hd_v] in q's dtype
+    and layout, or None -- the caller then falls back to ``attention`` --
+    where no mesh is active, the mesh has no ``model`` axis, S does not
+    divide by it or the inputs are not DTensors."""
+    mesh = get_active_mesh()
+    if (mesh is None or "model" not in mesh.mesh_dim_names
+            or not all(isinstance(t, DTensor) for t in (q, k, v))
+            or k.shape[1] % _mesh_sizes(mesh)["model"] != 0):
+        return None
+    from repro_torch.kernels import _local
+
+    b_ax = _dp_axis(mesh, q.shape[0])
+    q_pl = placements(P(b_ax), mesh)
+    kv_pl = placements(P(b_ax, "model"), mesh)
+    group = mesh.get_group("model")
+    k_valid = int(k_valid)
+
+    def local(q_l, k_l, v_l):
+        offset = mesh.get_local_rank("model") * k_l.shape[1]
+        m, l, o = decode_stats(q_l, k_l, v_l, k_valid - offset)
+        o = merge_decode_stats(m, l, o, group)
+        B, _, H, _ = q_l.shape
+        return o.reshape(B, 1, H, o.shape[-1]).to(q_l.dtype)
+
+    return _local.call(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl)
+
+
+def decode_stats(q, k, v, k_valid):
+    """One rank's step of the sharded flash-decode on its local tensors,
+    the cache positions at and past ``k_valid`` (the global count less the
+    shard's offset; <= 0: the whole shard) masked: (m, l, o) of its rows,
+    [B, H], [B, H] and [B, H, hd_v] f32, such that the merged output is
+    sum(o w) / sum(l w) with w = exp(m - max m).  Where the attention
+    kernels take the shapes (``fits_kernels``) it is ``decode_attention``
+    with its log-sum-exp -- the kernel on the card, the plain version on the
+    CPU -- as (lse, 1, the normalised output); else (MLA's absorbed decode,
+    v narrower than q and k) the JAX ``local_fn``'s f32 einsums, as (the
+    row max, the sum of exp(s - m), the unnormalised output)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import NEG_INF, fits_kernels
+
+    B, _, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if fits_kernels(q, k, v):
+        o, lse = decode_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), k_valid, return_lse=True)
+        return lse, torch.ones_like(lse), o.reshape(B, H, hd)
+    qf = q[:, 0].reshape(B, K, H // K, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qf, k.float()) / math.sqrt(hd)
+    valid = torch.arange(S, device=q.device) < k_valid
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    return m.reshape(B, H), p.sum(dim=-1).reshape(B, H), o.reshape(B, H, -1)
+
+
+def merge_decode_stats(m, l, o, group):
+    """Merge the ranks' (m, l, o) over ``group``, as the JAX package's
+    ``pmax``/``psum``: a MAX all-reduce of m, then SUM all-reduces of l w and
+    o w, w = exp(m - max m); returns sum(o w) / max(sum(l w), 1e-30), f32.
+    A shard with every position masked has m = -1e30 beside a real max, so
+    its w is exactly 0.  On a one-rank group w = 1 and each sum is its one
+    term, so the result is o / l exactly (o itself from the kernel)."""
+    import torch.distributed._functional_collectives as funcol
+
+    m_g = funcol.all_reduce(m, "max", group)
+    w = torch.exp(m - m_g)
+    l_g = funcol.all_reduce(l * w, "sum", group)
+    o_g = funcol.all_reduce(o * w[..., None], "sum", group)
+    return o_g / torch.clamp(l_g, min=1e-30)[..., None]
 
 
 # --- activation sharding constraints ---------------------------------------

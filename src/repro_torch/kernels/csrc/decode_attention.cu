@@ -46,13 +46,23 @@
 //     result is the same on every call.  With one split the CTA writes the
 //     output itself.  plan_splits keeps the staged partials within 96 KB.
 //
-// The counters are a small int32 buffer the wrapper keeps per device, zero
-// between calls; two calls in flight at once on two streams would share it.
+// With a non-null lse (the instances with LSE = true) the kernel also writes
+// each query row's log-sum-exp of the scaled, masked scores, M + log L in
+// f32, where it holds M and L (the single CTA, or the last CTA's merge), and
+// writes the output in f32, unrounded: a merge of several such outputs (the
+// sharded flash-decode) then rounds once.  Rounded to bf16 it is bit-equal
+// to the bf16 instance's output.  With every key masked (k_valid <= 0) the
+// lse is about -1e30 + log S.
+//
+// The counters are a small int32 buffer the wrapper keeps per device and
+// stream, zero between calls.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -63,6 +73,7 @@ constexpr int kRingBudget = 96 * 1024;   // bytes: 2-4 stages
 constexpr float kMask = -1.0e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // sm_90 opt-in limit per block
+constexpr int kMaxDevices = 64;   // the opt-ins are kept per device
 
 template <int HD, typename T, int RB>
 struct Cfg {
@@ -131,13 +142,18 @@ __device__ __forceinline__ void transpose_sum(float* v, int lane) {
   }
 }
 
-template <int HD, typename T, int RB>
+// the output's type: f32 in the instances that write the lse
+template <typename T, bool LSE>
+using Out = std::conditional_t<LSE, float, T>;
+
+template <int HD, typename T, int RB, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o,
-                        float* __restrict__ part, int* __restrict__ counters,
-                        int B, int S, int H, int K, int k_valid, int kv_end,
-                        int n_split, float scale) {
+                        const T* __restrict__ v, Out<T, LSE>* __restrict__ o,
+                        float* __restrict__ lse, float* __restrict__ part,
+                        int* __restrict__ counters, int B, int S, int H,
+                        int K, int k_valid, int kv_end, int n_split,
+                        float scale) {
   using C = Cfg<HD, T, RB>;
   constexpr int KW = C::kKW, CH = C::kCH, NST = C::kStages;
   constexpr int VEC = 16 / int(sizeof(T));  // elements of a 16-byte copy
@@ -355,6 +371,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row = static_cast<size_t>(b) * H + kh * G + g;
     if (n_split == 1) {
       store1(o + row * HD + d, __fdiv_rn(A, fmaxf(L, 1e-30f)));
+      if constexpr (LSE) {
+        if (d == 0) lse[row] = __fadd_rn(M, logf(L));
+      }
     } else {
       float* rec = part + (split * BH + row) * REC;
       rec[4 + d] = A;
@@ -408,6 +427,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int s = 0; s < n_split; ++s)
       L = __fmaf_rn(rr[s * REC + 1], rr[s * REC + 2], L);
     Lrow[tid] = fmaxf(L, 1e-30f);
+    if constexpr (LSE) {
+      if (rb * RB + tid < G)
+        lse[static_cast<size_t>(b) * H + kh * G + rb * RB + tid] =
+            __fadd_rn(Mrow[tid], logf(L));
+    }
   }
   __syncthreads();
   for (int e = tid; e < RB * HD / 4; e += kThreads) {
@@ -423,7 +447,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       a.z = __fmaf_rn(x.z, f, a.z);
       a.w = __fmaf_rn(x.w, f, a.w);
     }
-    T* out = o + (static_cast<size_t>(b) * H + kh * G + g) * HD + d;
+    Out<T, LSE>* out = o + (static_cast<size_t>(b) * H + kh * G + g) * HD + d;
     store1(out, __fdiv_rn(a.x, Lrow[r]));
     store1(out + 1, __fdiv_rn(a.y, Lrow[r]));
     store1(out + 2, __fdiv_rn(a.z, Lrow[r]));
@@ -432,9 +456,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) counters[blockIdx.y] = 0;  // ready for the next call
 }
 
-template <int HD, typename T, int RB>
-int launch(const void* q, const void* k, const void* v, void* o, float* part,
-           int* counters, int B, int S, int H, int K,
+template <int HD, typename T, int RB, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           float* part, int* counters, int B, int S, int H, int K,
            int k_valid, int kv_end, int n_split, float scale,
            cudaStream_t stream) {
   using C = Cfg<HD, T, RB>;
@@ -445,38 +469,45 @@ int launch(const void* q, const void* k, const void* v, void* o, float* part,
   if (merge > smem) smem = merge;
   if (smem > kMaxSmem || rows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int opted = 48 * 1024;  // dynamic shared memory opted in to so far
-  if (smem > opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<HD, T, RB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the dynamic shared memory opted in to so far, on each device (the
+  // attribute is set for the device that is current)
+  static int opted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > 48 * 1024 && smem > opted[dev]) {
+    e = cudaFuncSetAttribute(decode_attention_kernel<HD, T, RB, LSE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    opted = smem;
+    opted[dev] = smem;
   }
-  decode_attention_kernel<HD, T, RB>
+  decode_attention_kernel<HD, T, RB, LSE>
       <<<dim3(n_split, static_cast<unsigned>(rows)), kThreads, smem,
          stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), static_cast<T*>(o), part,
-                   counters, B, S, H, K, k_valid, kv_end, n_split,
+                   static_cast<const T*>(v), static_cast<Out<T, LSE>*>(o),
+                   lse, part, counters, B, S, H, K, k_valid, kv_end, n_split,
                    scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             float* part, int* counters, int B, int S,
-             int H, int K, int k_valid, int kv_end, int n_split, float scale,
-             cudaStream_t stream) {
-  const bool wide = H / K > 4;  // row blocks of 8 query rows, else of 4
+template <typename T, int RB>
+int launch_rows(int hd, const void* q, const void* k, const void* v, void* o,
+                float* lse, float* part, int* counters, int B, int S, int H,
+                int K, int k_valid, int kv_end, int n_split, float scale,
+                cudaStream_t stream) {
   switch (hd) {
 #define SYNERGAI_HD(N)                                                       \
   case N:                                                                    \
-    return wide ? launch<N, T, 8>(q, k, v, o, part, counters, B, S,          \
-                                  H, K, k_valid, kv_end, n_split, scale,     \
-                                  stream)                                    \
-                : launch<N, T, 4>(q, k, v, o, part, counters, B, S,          \
-                                  H, K, k_valid, kv_end, n_split, scale,     \
-                                  stream);
+    return lse != nullptr                                                    \
+               ? launch<N, T, RB, true>(q, k, v, o, lse, part, counters, B,  \
+                                        S, H, K, k_valid, kv_end, n_split,   \
+                                        scale, stream)                       \
+               : launch<N, T, RB, false>(q, k, v, o, lse, part, counters, B, \
+                                         S, H, K, k_valid, kv_end, n_split,  \
+                                         scale, stream);
     SYNERGAI_HD(16)
     SYNERGAI_HD(32)
     SYNERGAI_HD(64)
@@ -489,34 +520,51 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <typename T>
+int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
+             float* lse, float* part, int* counters, int B, int S, int H,
+             int K, int k_valid, int kv_end, int n_split, float scale,
+             cudaStream_t stream) {
+  // row blocks of 8 query rows where G = H / K > 4, else of 4
+  return H / K > 4
+             ? launch_rows<T, 8>(hd, q, k, v, o, lse, part, counters, B, S, H,
+                                 K, k_valid, kv_end, n_split, scale, stream)
+             : launch_rows<T, 4>(hd, q, k, v, o, lse, part, counters, B, S, H,
+                                 K, k_valid, kv_end, n_split, scale, stream);
+}
+
 }  // namespace
 
-// Plain C interface, loaded with ctypes.  q, o: [B, 1, H, hd]; k, v:
+// Plain C interface, loaded with ctypes.  q: [B, 1, H, hd]; k, v:
 // [B, S, K, hd]; contiguous device tensors of one dtype (0 = f32,
-// 1 = bf16), 16-byte aligned.  kv_end = min(k_valid, S) for k_valid >= 1
-// and S otherwise; n_split in 1 .. ceil(kv_end / 32) (split s takes the
-// 32-key tiles [s * n / n_split, (s + 1) * n / n_split) of the n =
+// 1 = bf16), 16-byte aligned.  o: [B, 1, H, hd], in that dtype when lse is
+// null, else f32; lse: null, or [B, H] f32, each row's log-sum-exp of its
+// scaled, masked scores.  kv_end = min(k_valid, S) for k_valid >= 1 and S
+// otherwise; n_split in 1 .. ceil(kv_end / 32) (split s takes the 32-key
+// tiles [s * n / n_split, (s + 1) * n / n_split) of the n =
 // ceil(kv_end / 32)).  part: [n_split, B * H, hd + 4] f32 scratch, one
 // partial (m, l, -, -, acc[hd]) a split and head (unused when n_split = 1);
 // counters: B * K * ceil(G / RB) int32, zero, left zero (RB = 4 for
-// G = H / K <= 4, else 8).  Launches one kernel asynchronously on `stream`;
-// returns cudaGetLastError().
+// G = H / K <= 4, else 8), not shared with a call in flight on another
+// stream.  Launches one kernel asynchronously on `stream`; returns
+// cudaGetLastError().
 
 extern "C" int synergai_decode_attention(const void* q, const void* k,
-                                         const void* v, void* o, float* part,
-                                         int* counters, int dtype, int B,
-                                         int S, int H, int K, int hd,
-                                         int k_valid, int kv_end, int n_split,
-                                         float scale, cudaStream_t stream) {
+                                         const void* v, void* o, float* lse,
+                                         float* part, int* counters,
+                                         int dtype, int B, int S, int H,
+                                         int K, int hd, int k_valid,
+                                         int kv_end, int n_split, float scale,
+                                         cudaStream_t stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || kv_end <= 0 ||
       kv_end > S || n_split < 1 || n_split > (kv_end + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch<float>(hd, q, k, v, o, part, counters, B, S, H,
-                           K, k_valid, kv_end, n_split, scale, stream);
+    return dispatch<float>(hd, q, k, v, o, lse, part, counters, B, S, H, K,
+                           k_valid, kv_end, n_split, scale, stream);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, part, counters, B,
-                                   S, H, K, k_valid, kv_end, n_split, scale,
+    return dispatch<__nv_bfloat16>(hd, q, k, v, o, lse, part, counters, B, S,
+                                   H, K, k_valid, kv_end, n_split, scale,
                                    stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -89,6 +89,20 @@ constexpr float kLn2 = 0.693147180559945309f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // sm_90 opt-in limit per block
 
+// The shared-memory opt-in (cudaFuncSetAttribute) applies to the device
+// that is current, so each flag that records it is kept per device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such flags, or -1 where there is none.
+inline int device_slot() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return -1;
+  }
+  return d;
+}
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 
@@ -613,10 +627,12 @@ extern "C" int synergai_flash_attention(const void* q, const void* k,
       !config_of(dtype, hd, lse != nullptr, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   // > 48 KB of shared memory, once for each kernel
-  static bool configured[2][2][6] = {};
+  static bool configured[kMaxDevices][2][2][6] = {};
+  const int dev = device_slot();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int slot = hd == 16 ? 0 : hd == 32 ? 1 : hd == 64 ? 2
                  : hd == 80 ? 3 : hd == 128 ? 4 : 5;
-  bool& done = configured[dtype][lse != nullptr][slot];
+  bool& done = configured[dev][dtype][lse != nullptr][slot];
   if (!done) {
     const cudaError_t e = cudaFuncSetAttribute(
         c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);

@@ -105,6 +105,20 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+// The shared-memory opt-in (cudaFuncSetAttribute) applies to the device
+// that is current, so each flag that records it is kept per device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such flags, or -1 where there is none.
+inline int device_slot() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return -1;
+  }
+  return d;
+}
+
 // ---------------------------------------------------------------------------
 // f32: plain FMAs (and the D pre-pass, both dtypes)
 
@@ -982,9 +996,11 @@ extern "C" int synergai_flash_attention_bwd(
       !kernels_for(dtype, hd, &c))
     return static_cast<int>(cudaErrorInvalidValue);
   // > 48 KB of shared memory, once for each kernel
-  static bool configured[2][6] = {};
+  static bool configured[kMaxDevices][2][6] = {};
+  const int dev = device_slot();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int slot = slot_of(hd);
-  if (!configured[dtype][slot]) {
+  if (!configured[dev][dtype][slot]) {
     const void* fns[] = {c.dkdv, c.dq};
     const int smem[] = {c.dkdv_smem, c.dq_smem};
     for (int i = 0; i < 2; ++i) {
@@ -992,7 +1008,7 @@ extern "C" int synergai_flash_attention_bwd(
           fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    configured[dtype][slot] = true;
+    configured[dev][dtype][slot] = true;
   }
   long long rows = static_cast<long long>(B) * Sq * H;
   const long long dot_blocks = (rows * 32 + kThreads - 1) / kThreads;

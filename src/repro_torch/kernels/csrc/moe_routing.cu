@@ -114,6 +114,20 @@ constexpr int kDecStages = 4;               // chunks in the decode's ring
 constexpr int kDecStageBytes = 32 * 1024;   // a chunk of W and x rows, at most
 constexpr int kSmemMax = 232448;            // a block's shared memory (227 KB)
 
+// The shared-memory opt-in (cudaFuncSetAttribute) applies to the device
+// that is current, so each flag that records it is kept per device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such flags, or -1 where there is none.
+inline int device_slot() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return -1;
+  }
+  return d;
+}
+
 __device__ __forceinline__ float load1(float v) { return v; }
 __device__ __forceinline__ float load1(__nv_bfloat16 v) {
   return __bfloat162float(v);  // exact: a bf16 is the top half of an f32
@@ -570,8 +584,11 @@ int launch_decode_items(const T* x, const float* w, float* gates,
                         float* mask, int n_tok, int D, int E, int top_k,
                         bool vec, int chunk, size_t smem, int threads,
                         cudaStream_t stream) {
-  static bool configured = false;  // opt in to > 48 KB of shared memory
-  if (!configured) {
+  // opt in to > 48 KB of shared memory, once a device
+  static bool configured[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t rc = cudaFuncSetAttribute(
         moe_routing_kernel_decode<T, ITEMS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -579,7 +596,7 @@ int launch_decode_items(const T* x, const float* w, float* gates,
       cudaGetLastError();  // not left behind for the next launch's check
       return static_cast<int>(rc);
     }
-    configured = true;
+    configured[dev] = true;
   }
   const int clusters = (n_tok + kGroupTok - 1) / kGroupTok;
   moe_routing_kernel_decode<T, ITEMS>
@@ -619,8 +636,10 @@ int launch_prefill(const T* x, const float* w, float* gates, float* mask,
                    int n_tok, int D, int E, int top_k, bool vec,
                    cudaStream_t stream) {
   const size_t smem = kStages * sizeof(PrefillStage<T>) + kTok * E * 4;
-  static bool configured = false;
-  if (!configured) {
+  static bool configured[kMaxDevices] = {};  // once a device
+  const int dev = device_slot();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t rc = cudaFuncSetAttribute(
         moe_routing_kernel_prefill<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -629,7 +648,7 @@ int launch_prefill(const T* x, const float* w, float* gates, float* mask,
       cudaGetLastError();  // not left behind for the next launch's check
       return static_cast<int>(rc);
     }
-    configured = true;
+    configured[dev] = true;
   }
   const int blocks = (n_tok + kTok - 1) / kTok;
   moe_routing_kernel_prefill<T><<<blocks, kThreads, smem, stream>>>(

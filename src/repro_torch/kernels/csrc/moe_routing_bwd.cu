@@ -65,6 +65,20 @@ namespace {
 constexpr int kMaxE = 256;
 constexpr int kPer = kMaxE / 32;   // experts per lane in routing
 constexpr unsigned kFull = 0xffffffffu;
+
+// The shared-memory opt-in (cudaFuncSetAttribute) applies to the device
+// that is current, so each flag that records it is kept per device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such flags, or -1 where there is none.
+inline int device_slot() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return -1;
+  }
+  return d;
+}
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;  // every kernel's CTA
 constexpr int kStages = 3;         // tiles in a ring
@@ -542,10 +556,13 @@ moe_routing_bwd_merge_kernel(const float* __restrict__ partial,
   dw[i] = s;
 }
 
-// opt a kernel in to `bytes` of dynamic shared memory (once a kernel)
+// opt a kernel in to `bytes` of dynamic shared memory (once a kernel and
+// device)
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
+cudaError_t allow_smem(K kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+  const int dev = device_slot();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
   const cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -553,7 +570,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
     cudaGetLastError();  // not left behind for the next launch's check
     return rc;
   }
-  done = true;
+  done[dev] = true;
   return cudaSuccess;
 }
 
@@ -562,7 +579,7 @@ cudaError_t launch_token(const T* x, const float* w, const float* dg, T* dx,
                          float* dlogits, int n_tok, int D, int E, int top_k,
                          bool wvec, bool xvec, cudaStream_t stream) {
   using C = Tok<T, EG>;
-  static bool configured = false;
+  static bool configured[kMaxDevices] = {};
   const cudaError_t rc = allow_smem(moe_routing_bwd_token_kernel<T, EG>,
                                     C::smem(kMaxE), configured);
   if (rc != cudaSuccess) return rc;
@@ -591,7 +608,7 @@ int route_bwd(const void* x, const float* w, const float* dg, void* dx,
                : launch_token<T, 2>(xt, w, dg, static_cast<T*>(dx), dlogits,
                                     n_tok, D, E, top_k, wvec, xvec, stream);
   if (err != cudaSuccess || D == 0) return static_cast<int>(err);
-  static bool dw_configured = false;
+  static bool dw_configured[kMaxDevices] = {};
   err = allow_smem(moe_routing_bwd_dw_kernel<T>,
                    kStages * sizeof(DwStage<T>), dw_configured);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -104,6 +104,20 @@ constexpr int kMaxSplit = 8;  // CTAs a cluster at most (the portable size)
 constexpr int kBufs = 3;      // partial buffers: a group's stay one group
 constexpr unsigned kFull = 0xffffffffu;
 
+// The shared-memory opt-in (cudaFuncSetAttribute) applies to the device
+// that is current, so each flag that records it is kept per device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such flags, or -1 where there is none.
+inline int device_slot() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return -1;
+  }
+  return d;
+}
+
 // The lane layout by head dim: L lanes a column group, each lane rows
 // i = t + L m (m < M = hd / L = 2) of NC = 4 adjacent columns.
 template <int HD>
@@ -571,8 +585,11 @@ int launch(const float* r, const float* k, const float* v, const float* w,
            float* dk, float* dv, float* dw, float* ds0, float* scratch, int B,
            int S, int H, cudaStream_t stream) {
   using P = Bwd<HD, SPLIT>;
-  static bool configured = false;  // opt in to > 48 KB of shared memory
-  if (!configured) {
+  // opt in to > 48 KB of shared memory, once a device
+  static bool configured[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t rc = cudaFuncSetAttribute(
         rwkv_scan_bwd_kernel<HD, SPLIT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
@@ -580,7 +597,7 @@ int launch(const float* r, const float* k, const float* v, const float* w,
       cudaGetLastError();  // not left behind for the next launch's check
       return static_cast<int>(rc);
     }
-    configured = true;
+    configured[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B * H * SPLIT));

@@ -84,6 +84,20 @@ constexpr int kRegisterWorkers = 8;  // workers a lane in registers (Wp 256)
 constexpr size_t kSmemRows = 64 * 1024;  // staged rows a block, aimed at
 constexpr size_t kSmemMax = 232448;  // a block's shared memory (227 KB)
 constexpr unsigned kFull = 0xffffffffu;
+
+// The shared-memory opt-in (cudaFuncSetAttribute) applies to the device
+// that is current, so each flag that records it is kept per device.
+constexpr int kMaxDevices = 64;
+
+// The current device's index into such flags, or -1 where there is none.
+inline int device_slot() {
+  int d = 0;
+  if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) {
+    cudaGetLastError();  // not left behind for the next launch's check
+    return -1;
+  }
+  return d;
+}
 constexpr int kMaxWalkers = 512;
 constexpr int kRegisterBits = 64;  // open bits a walker keeps in registers
 constexpr int kLoaders = 256;      // threads that stage the next chunk
@@ -630,8 +644,11 @@ extern "C" int synergai_tick_score(
     tick_score_kernel_reg<kRegisterWorkers>
         <<<blocks, kThreads, 0, stream>>>(a);
   } else if (row_bytes <= kSmemMax) {
-    static bool configured = false;  // opt in to > 48 KB of shared memory
-    if (!configured) {
+    // opt in to > 48 KB of shared memory, once a device
+    static bool configured[kMaxDevices] = {};
+    const int dev = device_slot();
+    if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!configured[dev]) {
       const cudaError_t rc = cudaFuncSetAttribute(
           tick_score_kernel_smem, cudaFuncAttributeMaxDynamicSharedMemorySize,
           kSmemMax);
@@ -639,7 +656,7 @@ extern "C" int synergai_tick_score(
         cudaGetLastError();  // not left behind for the next launch's check
         return static_cast<int>(rc);
       }
-      configured = true;
+      configured[dev] = true;
     }
     auto al = [](const void* q, uintptr_t n) {
       return reinterpret_cast<uintptr_t>(q) % n == 0;
@@ -673,13 +690,16 @@ extern "C" int synergai_greedy_place(const float* ranked,
   const size_t smem =
       staged ? sizeof(uint32_t) * (2 * kChunk * static_cast<size_t>(Wp) + T)
              : 0;
-  static bool configured = false;  // opt in to > 48 KB of shared memory once
-  if (!configured) {
+  // opt in to > 48 KB of shared memory, once a device
+  static bool configured[kMaxDevices] = {};
+  const int dev = device_slot();
+  if (dev < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[dev]) {
     const cudaError_t rc = cudaFuncSetAttribute(
         greedy_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kStageBytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
-    configured = true;
+    configured[dev] = true;
   }
   const int nb = (Wp + T - 1) / T;  // workers a walker
   uint32_t* open_ext = nullptr;

@@ -29,6 +29,7 @@ import math
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import _meta
 from repro_torch.kernels import _build, _local
 
 NEG_INF = -1e30
@@ -65,8 +66,9 @@ def check_attention_inputs(what, q, k, v):
     if Sk == 0:
         raise ValueError(f"{what}: no keys")
     dev = q.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{what} runs on cpu, cuda or meta (shapes only), "
+                         f"not {dev}")
     if dev.type == "cuda" and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError(f"{what}: the kernels need 16-byte aligned tensors")
     return B, Sq, H, hd, Sk, K
@@ -137,6 +139,10 @@ def _launch_forward(q, k, v, causal, window, with_lse):
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
+        return out, lse
+    if q.device.type == "meta":
+        _meta.kernel_flops("flash_attention", 4 * hd * B * H * visible_pairs(
+            Sq, Sk, causal, window))
         return out, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -225,6 +231,16 @@ def _flash_attention(q, k, v, causal, window):
     return _launch_forward(q, k, v, causal, window, False)[0]
 
 
+def visible_pairs(Sq, Sk, causal, window):
+    """The (query, key) pairs of one head that the masks leave visible:
+    query i sees the keys j < Sk with j <= i (causal) and i - j < window."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(i, max=Sk - 1) if causal else torch.full_like(i, Sk - 1)
+    lo = (torch.clamp(i - window + 1, min=0) if window is not None
+          else torch.zeros_like(i))
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
 flash_attention.launches = 0
 
 
@@ -297,6 +313,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
                                          causal=causal, window=window)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0:
+        return dq, dk, dv
+    if q.device.type == "meta":
+        # s and dP recomputed, then dV, dS's products dQ and dK: 10 hd a
+        # visible pair
+        _meta.kernel_flops("flash_attention_bwd", 10 * hd * B * H *
+                           visible_pairs(Sq, Sk, causal, window))
         return dq, dk, dv
     dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

@@ -40,6 +40,7 @@ import ctypes
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch import _meta
 from repro_torch.kernels import _build, _local
 from repro_torch.kernels.flash_attention import DTYPES, _wants_grad
 
@@ -82,8 +83,9 @@ def check_routing_inputs(x, router_w, top_k, what="moe_routing"):
                          f"{router_w.device}")
     if not (x.is_contiguous() and router_w.is_contiguous()):
         raise ValueError(f"{what}: x and router_w must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{what} runs on cpu, cuda or meta (shapes only), "
+                         f"not {x.device}")
     return T, D, E
 
 
@@ -166,6 +168,9 @@ def _launch(x, router_w, top_k, design):
     gates = torch.empty((T, E), dtype=torch.float32, device=x.device)
     mask = torch.empty_like(gates)
     if T == 0:               # no token: empty outputs, no launch
+        return gates, mask
+    if x.device.type == "meta":
+        _meta.kernel_flops("moe_routing", 2 * T * D * E)
         return gates, mask
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -330,6 +335,10 @@ def moe_routing_bwd(x, router_w, top_k, dgates):
     if T == 0:               # no token: no launch
         return dx, torch.zeros((D, E), dtype=torch.float32, device=x.device)
     dw = torch.empty((D, E), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        # the logits recomputed, dx and dW: 2 T D E each
+        _meta.kernel_flops("moe_routing_bwd", 6 * T * D * E)
+        return dx, dw
     dlogits = torch.empty((T, E), dtype=torch.float32, device=x.device)
     n_chunks = -(-T // DW_CHUNK)
     partial = (torch.empty((n_chunks, D, E), dtype=torch.float32,

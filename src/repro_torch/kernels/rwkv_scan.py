@@ -36,6 +36,7 @@ import ctypes
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch import _meta
 from repro_torch.kernels import _build, _local
 from repro_torch.kernels.flash_attention import DTYPES, _wants_grad
 
@@ -134,8 +135,9 @@ def check_scan_inputs(r, k, v, w, u, state, state_out, ckpt=None, *,
     if ckpt is not None:
         _check_f32_state(what, "ckpt", ckpt, (B, H, n_chunks(S), hd, hd),
                          r.device)
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what} runs on cpu or cuda, not {r.device}")
+    if r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"{what} runs on cpu, cuda or meta (shapes only), "
+                         f"not {r.device}")
     return B, S, H, hd
 
 
@@ -225,6 +227,14 @@ def _scan(r, k, v, w, u, state, state_out, ckpt):
         s = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
                          device=r.device) if state is None else state.clone())
         return torch.empty_like(r), _end_state(s, state_out)
+    if r.device.type == "meta":
+        B, S, H, hd = r.shape
+        # a step of a head: k v^T, r S and the decay, 2 hd^2 each
+        _meta.kernel_flops("rwkv_scan", 6 * B * S * H * hd * hd)
+        return torch.empty_like(r), (state_out if state_out is not None else
+                                     torch.empty((B, H, hd, hd),
+                                                 dtype=torch.float32,
+                                                 device=r.device))
     return _launch(r, k, v, w, u, state, state_out, ckpt)
 
 
@@ -278,8 +288,9 @@ def rwkv_scan(r, k, v, w, u, state=None, *, state_out=None):
     ``RwkvScanFn`` when grad mode is on and an input requires grad (float32
     inputs, no ``state_out``).  On DTensors the same call runs on the local
     shards: r's batch and head shards kept where they divide, the sequence
-    and head_dim whole; a ``state_out`` must already be laid out so (batch
-    on dim 0, heads on dim 1), and its local shard is written."""
+    and head_dim whole; a ``state_out`` laid out so (batch on dim 0, heads
+    on dim 1) has its local shard written, one laid out otherwise (a cache
+    sharded on head_dim) is written from the end state redistributed."""
     if isinstance(r, DTensor):
         return _sharded_scan(r, k, v, w, u, state, state_out)
     return _rwkv_scan(r, k, v, w, u, state, state_out)
@@ -305,13 +316,14 @@ def _sharded_scan(r, k, v, w, u, state, state_out):
     pl = _local.kept(r, {0: r.shape[0], 2: r.shape[2]})
     u_pl = [Shard(0) if p == Shard(2) else Replicate() for p in pl]
     s_pl = _local.moved(pl, {0: 0, 2: 1})
-    out_local = None
+    out_local = copy_to = None
     if state_out is not None:
-        if (not isinstance(state_out, DTensor)
-                or list(state_out.placements) != s_pl):
-            raise ValueError(f"rwkv_scan: state_out must be a DTensor laid "
-                             f"out as {s_pl}")
-        out_local = state_out.to_local()
+        if not isinstance(state_out, DTensor):
+            raise ValueError("rwkv_scan: state_out must be a DTensor")
+        if list(state_out.placements) == s_pl:
+            out_local = state_out.to_local()
+        else:                # laid out otherwise: written after the scan
+            copy_to = state_out
     args, in_pl = (r, k, v, w, u), [pl] * 4 + [u_pl]
     grad_pl = in_pl[:4] + [_local.summed_over(pl, 0, u_pl)]
     if state is not None:
@@ -321,7 +333,11 @@ def _sharded_scan(r, k, v, w, u, state, state_out):
         return _rwkv_scan(r, k, v, w, u, state[0] if state else None,
                           out_local)
 
-    return _local.call(scan, args, in_pl, (pl, s_pl), grad_pl)
+    y, end = _local.call(scan, args, in_pl, (pl, s_pl), grad_pl)
+    if copy_to is not None:
+        end = copy_to.copy_(end.redistribute(copy_to.device_mesh,
+                                             copy_to.placements))
+    return y, end
 
 
 # ----------------------------------------------------------------------------
@@ -397,6 +413,11 @@ def rwkv_scan_bwd(r, k, v, w, ckpt, dy, ds_end=None):
         return (*(torch.zeros_like(r) for _ in range(4)), ds0)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        # the states recomputed, then dr, dk, dv, dw and the state's
+        # cotangent a step and head
+        _meta.kernel_flops("rwkv_scan_bwd", 14 * B * S * H * hd * hd)
+        return dr, dk, dv, dw, ds0
     kept = torch.empty((B * H, CHUNK // BWD_STEPS, hd, hd),
                        dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

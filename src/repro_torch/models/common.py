@@ -32,8 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch import _meta
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
@@ -143,7 +143,7 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     K = k.shape[2]
     hd_v = v.shape[-1]
     G = H // K
-    qr = q.reshape(B, Sq, K, G, hd)
+    qr = splittable(q, 2, K).reshape(B, Sq, K, G, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qr.float(),
                           k.float()) / math.sqrt(hd)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -153,13 +153,14 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         bias = bias + torch.where(k_pos[None, :] < k_valid, 0.0, -1e30)
     probs = torch.softmax(scores + bias, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
-    return out.reshape(B, Sq, H, hd_v).to(q.dtype)
+    return splittable_grad(out.reshape(B, Sq, H, hd_v), 2, K).to(q.dtype)
 
 
 def chunked_flash_attention(q, k, v, *, causal=True, window=None,
                             chunk=1024, q_offset=0, k_valid=None):
     """Online-softmax attention over KV chunks: the JAX package's XLA
-    'flash' path (a Python loop in place of ``lax.scan``)."""
+    'flash' path (a Python loop in place of ``lax.scan``; on meta tensors
+    one chunk, counted for every chunk: ``_meta.trips``)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -173,7 +174,7 @@ def chunked_flash_attention(q, k, v, *, causal=True, window=None,
     m = torch.full((B, H, Sq), -math.inf, device=q.device)
     l = torch.zeros((B, H, Sq), device=q.device)
     acc = torch.zeros((B, H, Sq, hd_v), device=q.device)
-    for idx in range(Sk // chunk):
+    for idx in _meta.trips(Sk // chunk, q):
         kc = k[:, idx * chunk:(idx + 1) * chunk]
         vc = v[:, idx * chunk:(idx + 1) * chunk]
         if G > 1:  # expand grouped kv heads to the full query-head axis
@@ -270,6 +271,42 @@ def whole(t, dims=None):
     return t.redistribute(t.device_mesh, pl)
 
 
+def splittable(t, dim, lead):
+    """``t``, made whole along ``dim`` where it is a DTensor that shards
+    that dim over more ranks than ``lead`` divides by: a view that
+    unflattens ``dim`` into (``lead``, rest) needs every shard to hold whole
+    rows of ``lead`` (DTensor refuses "to unflatten an unevenly sharded
+    tensor": 8 kv heads or 25 heads over a 16-way axis).  Else ``t``."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.dim()
+    n = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                  if isinstance(p, Shard) and p.dim == dim)
+    return whole(t, [dim]) if lead % n else t
+
+
+class _SplittableGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient ``splittable``."""
+
+    @staticmethod
+    def forward(ctx, t, dim, lead):
+        ctx.dim, ctx.lead = dim, lead
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return splittable(g, ctx.dim, ctx.lead), None, None
+
+
+def splittable_grad(t, dim, lead):
+    """``t`` itself, with its gradient made ``splittable(g, dim, lead)`` in
+    the backward: for a flattened weight whose gradient the view back to
+    its shape unflattens.  On a plain tensor or without grad, ``t``."""
+    if not isinstance(t, DTensor) or not t.requires_grad:
+        return t
+    return _SplittableGrad.apply(t, dim, lead)
+
+
 def init_embedding(generator, cfg: ModelConfig, dtype, device=None):
     return {
         "tok": embed_init(generator, (cfg.vocab, cfg.d_model), dtype=dtype,
@@ -311,10 +348,12 @@ def time_scan(step, carry, xs):
     block = getattr(step, "block", None)
     if block is not None:
         return block(carry, xs)
-    ys = []
-    for t in range(tree_leaves(xs)[0].shape[0]):
+    ys, n = [], tree_leaves(xs)[0].shape[0]
+    for t in _meta.trips(n, tree_leaves(xs)[0]):
         carry, y = step(carry, tree_map(lambda a: a[t], xs))
         ys.append(y)
+    if len(ys) < n:              # on meta tensors: one trip, n results
+        ys = ys * n
     return carry, tree_map(lambda *a: torch.stack(a), *ys)
 
 
@@ -332,13 +371,15 @@ def chunked_time_scan(step, init, xs, length: int, chunk: int = 64):
 
     ``xs``: pytree of [S, ...] tensors scanned over the leading axis.
     Returns (final_carry, ys stacked to [S, ...]).  Scans flat when
-    ``length % chunk != 0 or length <= chunk``."""
+    ``length % chunk != 0 or length <= chunk``.  On meta tensors both loops
+    run one trip, counted for every trip (``_meta.trips``)."""
     if length % chunk != 0 or length <= chunk:
         return time_scan(step, init, xs)
-    carry, ys = init, []
-    for i in range(length // chunk):
+    carry, ys, n = init, [], length // chunk
+    for i in _meta.trips(n, tree_leaves(xs)[0]):
         xc = tree_map(lambda a: a[i * chunk:(i + 1) * chunk], xs)
-        carry, y = checkpoint(time_scan, step, carry, xc,
-                              use_reentrant=False)
+        carry, y = _meta.checkpoint(time_scan, step, carry, xc)
         ys.append(y)
+    if len(ys) < n:              # on meta tensors: one trip, n results
+        ys = ys * n
     return carry, tree_map(lambda *a: torch.cat(a), *ys)

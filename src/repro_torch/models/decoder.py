@@ -32,8 +32,8 @@ from typing import Optional
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch._meta import checkpoint
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain_seq
@@ -281,8 +281,7 @@ def decoder_stack(params, cfg: ModelConfig, x, *, mode, caches=None, pos=None,
                 layer = partial(_train_layer, tree_map(lambda t: t[i],
                                                        gparams),
                                 cfg, g.spec, ctx)
-                x = (checkpoint(layer, x, use_reentrant=False) if cfg.remat
-                     else layer(x))
+                x = checkpoint(layer, x) if cfg.remat else layer(x)
         return common.whole(x, [1]), [None] * len(groups)
     caches = caches if caches is not None else [None] * len(groups)
     new_caches = []
@@ -341,7 +340,7 @@ def encoder_stack(params, cfg: ModelConfig, x, *, remat=False):
         layer = partial(_encoder_layer,
                         tree_map(lambda t: t[i], params["layers"]), cfg, cos,
                         sin)
-        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        x = checkpoint(layer, x) if remat else layer(x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -56,8 +56,11 @@ decode, ``common.chunked_time_scan`` of ``mamba_step`` in training.  The JAX
 package's ``ONEHOT_CACHE_UPDATE`` switch is ported (off by default, as
 there); ``moe_ffn`` calls the MoE sharding constraints where the JAX one
 does (``constrain_moe_groups``, ``constrain_moe_expert``: the identity on
-plain tensors).  The ``SHARDED_DECODE_ATTN`` switch (a ``shard_map``
-flash-decode) waits for a later slice.
+plain tensors).  The ``SHARDED_DECODE_ATTN`` switch is ported too (off by
+default, as there): with it the full-cache GQA decode and MLA's absorbed
+decode attend through ``sharding.sharded_decode_attention`` on a
+sequence-sharded cache, and fall back to ``attention`` where it returns
+None.
 """
 
 from __future__ import annotations
@@ -66,10 +69,12 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import _meta
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain_moe_expert,
                                               constrain_moe_groups,
-                                              local_offset, local_part)
+                                              local_offset, local_part,
+                                              sharded_decode_attention)
 from repro_torch.kernels.moe_routing import moe_routing
 from repro_torch.kernels.rwkv_scan import rwkv_scan
 from repro_torch.models import common
@@ -81,6 +86,12 @@ from repro_torch.models.common import (apply_rope, attention, dense_init,
 # slot write: elementwise, so it stays shard-local on a sequence-sharded
 # cache (the JAX package's switch; its baseline is the slot write).
 ONEHOT_CACHE_UPDATE = False
+
+# When True, full-cache decode attention runs as the sharded flash-decode
+# (each rank's softmax statistics over its shard of the cache, merged over
+# the model axis) instead of making the sequence-sharded cache whole (the
+# JAX package's switch, read where it reads it).
+SHARDED_DECODE_ATTN = False
 
 
 def _cache_write(buf, update, idx):
@@ -143,7 +154,19 @@ def init_attn_cache(cfg: ModelConfig, batch, buf_len, dtype, device=None,
 def _project(x, w):
     """x [B, S, D] @ w [D, N, hd] -> [B, S, N, hd], contiguous."""
     B, S, D = x.shape
-    return (x @ w.reshape(D, -1)).view(B, S, w.shape[1], w.shape[2])
+    N = w.shape[1]
+    w2 = common.splittable_grad(w.reshape(D, -1), 1, N)
+    return common.splittable(x @ w2, -1, N).view(B, S, N, w.shape[2])
+
+
+def _out_project(out, wo):
+    """out [B, S, H, hd] with its heads flattened @ wo [H, hd, D] -> [B, S,
+    D].  On DTensors the gradients of the two flattened operands are made
+    ``splittable`` over the H heads their views back unflatten."""
+    B, S, H, hd = out.shape
+    flat = common.splittable_grad(out.reshape(B, S, H * hd), -1, H)
+    return flat @ common.splittable_grad(wo.reshape(H * hd, wo.shape[-1]), 0,
+                                         H)
 
 
 def attn_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos, window):
@@ -183,13 +206,15 @@ def attn_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos, window):
         # every slot of the ring is within the window once warm; a validity
         # bound covers the cold start
         k_valid = min(pos + 1, buf) if window is not None else pos + 1
-        out = attention(cfg, q, ck, cv, causal=False, window=None,
-                        k_valid=k_valid)
+        out = None
+        if window is None and SHARDED_DECODE_ATTN:
+            out = sharded_decode_attention(q, ck, cv, k_valid)
+        if out is None:
+            out = attention(cfg, q, ck, cv, causal=False, window=None,
+                            k_valid=k_valid)
     else:
         raise ValueError(f"mode {mode!r}")
-    H, hd = cfg.n_heads, cfg.head_dim
-    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
-    return y, new_cache
+    return _out_project(out, p["wo"]), new_cache
 
 
 # =============================================================================
@@ -227,8 +252,7 @@ def cross_sublayer(p, cfg: ModelConfig, x, *, mode, cache, ctx):
             ck = head_rms_norm(ck, p["k_norm"], cfg.norm_eps)
         new_cache = {"ck": ck, "cv": cv} if mode != "train" else None
     out = attention(cfg, q, ck, cv, causal=False, window=None)
-    H, hd = cfg.n_heads, cfg.head_dim
-    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D), new_cache
+    return _out_project(out, p["wo"]), new_cache
 
 
 # =============================================================================
@@ -327,13 +351,17 @@ def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
         q_cat = torch.cat([q_lat, q_rope], dim=-1)
         k_cat = torch.cat([ckv_full, krope_full],
                           dim=-1)[:, :, None, :]     # MQA: one kv head
-        out_lat = attention(cfg, q_cat, k_cat, ckv_full[:, :, None, :],
-                            causal=False, k_valid=k_valid)
+        out_lat = None
+        if SHARDED_DECODE_ATTN:
+            out_lat = sharded_decode_attention(
+                q_cat, k_cat, ckv_full[:, :, None, :], k_valid)
+        if out_lat is None:
+            out_lat = attention(cfg, q_cat, k_cat, ckv_full[:, :, None, :],
+                                causal=False, k_valid=k_valid)
         # out in the latent space, expanded through wv_b, then wo (the JAX
         # "bshr,rhv,hvd->bsd", contracted pairwise in that order)
         out = torch.einsum("bshr,rhv->bshv", out_lat, p["wv_b"])
-        return out.reshape(B, S, H * vd) @ p["wo"].reshape(H * vd, D), \
-            new_cache
+        return _out_project(out, p["wo"]), new_cache
 
     Sk = ckv_full.shape[1]
     k_nope = _project(ckv_full, p["wk_b"])
@@ -342,7 +370,7 @@ def mla_sublayer(p, cfg: ModelConfig, x, *, mode, cache, pos,
                                                             rope_d)], dim=-1)
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     out = attention(cfg, q_cat, k, v, causal=causal, k_valid=k_valid)
-    return out.reshape(B, S, H * vd) @ p["wo"].reshape(H * vd, D), new_cache
+    return _out_project(out, p["wo"]), new_cache
 
 
 # =============================================================================
@@ -385,6 +413,27 @@ def _route_grouped(p, cfg: ModelConfig, xg):
     return gates.view(shape), mask.view(shape)
 
 
+class _Dense(torch.autograd.Function):
+    """``contiguous()`` of a DTensor, its gradient made contiguous too."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _dense(t):
+    """``t``, on a DTensor with contiguous global strides, and so its
+    gradient.  The expert einsums leave e-major global strides over b-major
+    local shards, and a product that reads such a tensor (or its gradient,
+    in the backward) takes a view that the local tensor cannot give
+    (deepseek-v2 on the (16, 16) mesh).  A plain ``t`` is returned."""
+    return _Dense.apply(t) if isinstance(t, DTensor) else t
+
+
 def moe_ffn(p, cfg: ModelConfig, x):
     """GShard grouped capacity dispatch, as the JAX ``moe_ffn``: the
     sequence is split into groups of ``MOE_CHUNK`` tokens (the whole
@@ -413,13 +462,13 @@ def moe_ffn(p, cfg: ModelConfig, x):
         pos_in_exp.to(torch.int32)[..., None] == slots)    # [B,G,T,E,C]
     combine = dispatch * gates[..., None]
     dt = x.dtype
-    exp_in = constrain_moe_expert(
-        torch.einsum("bgtec,bgtd->bgecd", dispatch.to(dt), xg))
+    exp_in = _dense(constrain_moe_expert(
+        torch.einsum("bgtec,bgtd->bgecd", dispatch.to(dt), xg)))
     a = torch.einsum("bgecd,edf->bgecf", exp_in, p["wi"])
     h = torch.einsum("bgecd,edf->bgecf", exp_in, p["wg"])
     act = F.gelu(h, approximate="tanh") if cfg.act == "gelu" else F.silu(h)
-    exp_out = constrain_moe_expert(
-        torch.einsum("bgecf,efd->bgecd", a * act, p["wo"]))
+    exp_out = _dense(constrain_moe_expert(
+        torch.einsum("bgecf,efd->bgecd", _dense(a * act), p["wo"])))
     # on DTensors the combine folds e: E whole for it
     out = torch.einsum("bgtec,bgecd->bgtd", combine.to(dt),
                        common.whole(exp_out, [2]))
@@ -595,11 +644,15 @@ def init_mamba_cache(cfg: ModelConfig, batch, dtype, device=None, lead=()):
 def _recur_(dA, hs, h):
     """h_t += dA_t h_{t-1} in place over the paired steps of ``dA`` and
     ``hs`` (sequences of views, each h_t holding its step's dt B x on
-    entry), from ``h`` (None: zeros): one ``addcmul_`` a step."""
-    for dA_t, h_t in zip(dA, hs):
-        if h is not None:
-            h_t.addcmul_(dA_t, h)
-        h = h_t
+    entry), from ``h`` (None: zeros): one ``addcmul_`` a step (on meta
+    tensors one, counted for every step: ``_meta.trips``)."""
+    if h is None:
+        if not hs:
+            return
+        dA, hs, h = dA[1:], hs[1:], hs[0]
+    for t in _meta.trips(len(hs), h):
+        hs[t].addcmul_(dA[t], h)
+        h = hs[t]
 
 
 def selective_scan(dt, Bt, Ct, x, A, h0):
@@ -612,7 +665,13 @@ def selective_scan(dt, Bt, Ct, x, A, h0):
     over t, each step one in-place ``addcmul_`` that turns the step's dt B x
     into its state.  Two [B, S, di, N] tensors are alive at a time.  It
     writes its states in place, which autograd cannot differentiate: the
-    training path is ``mamba_step``."""
+    training path is ``mamba_step``.  On DTensors the inputs keep only
+    their batch shards (the rest whole, pending sums reduced), so that the
+    in-place steps find one layout."""
+    if isinstance(dt, DTensor):
+        dt, Bt, Ct, x = (common.whole(t, [1, 2]) for t in (dt, Bt, Ct, x))
+        A = common.whole(A)
+        h0 = None if h0 is None else common.whole(h0, [1, 2])
     dA = (dt[..., None] * A).exp_()                    # [B, S, di, N]
     hs = dt[..., None] * Bt[:, :, None, :]
     hs.mul_(x[..., None])                              # dt B x, then h
@@ -630,10 +689,14 @@ class MambaRecurrence(torch.autograd.Function):
     step.  The backward runs the cotangent's recurrence in reverse time,
     g_t = dhs_t + dA_{t+1} g_{t+1}, one ``addcmul_`` a step, then forms
     d dA_t = g_t h_{t-1}, d dBx_t = g_t and d h0 = dA_0 g_0 once for all
-    t: what autograd of the JAX step gives, without a graph node a step."""
+    t: what autograd of the JAX step gives, without a graph node a step.
+    On DTensors every operand keeps only its batch shards (time whole for
+    the unbinds, one layout for the in-place steps)."""
 
     @staticmethod
     def forward(ctx, dA, dBx, h0):
+        dA, dBx = (common.whole(t, [0, 2, 3]) for t in (dA, dBx))
+        h0 = common.whole(h0, [1, 2])
         hs = dBx.clone(memory_format=torch.contiguous_format)
         _recur_(dA.unbind(0), hs.unbind(0), h0)
         ctx.save_for_backward(dA, hs, h0)
@@ -642,7 +705,8 @@ class MambaRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs):
         dA, hs, h0 = ctx.saved_tensors
-        g = dhs.clone(memory_format=torch.contiguous_format)
+        g = common.whole(dhs, [0, 2, 3]).clone(
+            memory_format=torch.contiguous_format)
         gs = g.unbind(0)        # g_t += dA_{t+1} g_{t+1}, t = T-2, ..., 0
         _recur_(dA.unbind(0)[:0:-1], gs[-2::-1], gs[-1])
         d_dA = torch.empty_like(g)
@@ -673,7 +737,14 @@ def mamba_step(A):
         hs = MambaRecurrence.apply(dA, dBx, h)
         # the carry is a copy: a view would keep every state of the block
         # alive as long as the next chunk keeps its input carry
-        return hs[-1].clone(), torch.einsum("tbcn,tbn->tbc", hs, Ct)
+        if isinstance(hs, DTensor):
+            # batch first: DTensor cannot unflatten (t, b) folded with b
+            # split over two mesh dims (pod and data)
+            y = torch.einsum("btcn,btn->btc", hs.transpose(0, 1),
+                             Ct.transpose(0, 1)).transpose(0, 1)
+        else:
+            y = torch.einsum("tbcn,tbn->tbc", hs, Ct)
+        return hs[-1].clone(), y
 
     step.block = block
     return step

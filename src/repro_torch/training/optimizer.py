@@ -125,11 +125,16 @@ def _local(leaf, like):
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, opt_state):
     """Returns (params, opt_state, metrics): params, m and v updated in
-    place, a new step; metrics {"lr", "grad_norm"}."""
-    step = opt_state["step"] + 1
+    place, a new step; metrics {"lr", "grad_norm"}.  A step counter that is
+    a (replicated) DTensor is read as its local tensor, which every rank
+    holds whole: the update below runs on local shards."""
+    count = opt_state["step"]
+    if isinstance(count, DTensor):
+        count = count.to_local()
+    step = count + 1
     gn = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
-    lr = schedule(cfg, opt_state["step"])
+    lr = schedule(cfg, count)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()
     bc1 = 1.0 - torch.full_like(stepf, b1) ** stepf

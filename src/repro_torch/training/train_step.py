@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import _meta
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.distributed.sharding import mesh_aware
 from repro_torch.models.registry import Model
@@ -68,7 +69,8 @@ def loss_and_grads(model: Model, params, batch, accum_steps: int = 1,
     """The loss and the gradient tree of ``batch`` (the step before the
     update): one pass, or ``accum_steps`` microbatches whose losses and
     gradients are summed in f32 and divided by ``accum_steps``; each
-    gradient redistributed to ``grad_shardings`` where it is given."""
+    gradient redistributed to ``grad_shardings`` where it is given.  On
+    meta tensors one microbatch runs, counted for all (``_meta.trips``)."""
     if accum_steps == 1:
         loss, grads = _value_and_grad(model, params, batch)
         return loss, _constrain(grads, grad_shardings)
@@ -77,7 +79,7 @@ def loss_and_grads(model: Model, params, batch, accum_steps: int = 1,
     gacc = _constrain(tree_map(lambda p: torch.zeros_like(
         p, dtype=torch.float32, memory_format=torch.contiguous_format),
         params), grad_shardings)
-    for i in range(accum_steps):
+    for i in _meta.trips(accum_steps, tree_leaves(params)[0]):
         loss, grads = _value_and_grad(model, params,
                                       _microbatch(batch, accum_steps, i))
         grads = _constrain(grads, grad_shardings)

@@ -148,6 +148,32 @@ def test_plan_splits_cover_the_cache_in_whole_tiles(B, K, G, kv_end, hd):
     assert n * da.rows_per_cta(G) * (hd + 4) * 4 <= da.MERGE_BYTES
 
 
+def test_ticket_buffers_are_kept_per_stream_and_capped(monkeypatch):
+    """One ticket buffer a (device, stream), grown on its stream, reused by
+    the next call there; past ``MAX_TICKET_BUFFERS`` streams the least
+    recently used goes (the buffers' logic; on the CPU only their
+    allocation differs)."""
+    monkeypatch.setattr(da, "_counter_buffers", {})
+    cpu = torch.device("cpu")
+    a = da._counters(cpu, 1, 8)
+    assert da._counters(cpu, 1, 8) is a and a.numel() == 256
+    assert da._counters(cpu, 2, 8) is not a
+    grown = da._counters(cpu, 1, 300)
+    assert grown.numel() == 512 and not grown.any()
+    assert da._counters(cpu, 1, 8) is grown
+    for stream in range(3, 3 + da.MAX_TICKET_BUFFERS):
+        da._counters(cpu, stream, 8)
+    keys = list(da._counter_buffers)
+    assert len(keys) == da.MAX_TICKET_BUFFERS
+    assert (cpu, 1) not in keys and (cpu, 2) not in keys
+    assert keys[-1] == (cpu, 2 + da.MAX_TICKET_BUFFERS)
+    da._counters(cpu, 3, 8)                       # used again: kept last
+    da._counters(cpu, 1, 8)
+    assert list(da._counter_buffers)[-2:] == [(cpu, 3), (cpu, 1)]
+    assert (cpu, 4) not in da._counter_buffers
+    assert da.tickets_at_zero(cpu)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 4, 48)
     with pytest.raises(ValueError, match="head_dim 48"):

@@ -118,6 +118,36 @@ def test_subprocess_training_loads_no_jax_and_no_reference(arch, tmp_path):
     assert proc.stdout.splitlines()[-1] == "ISOLATED"
 
 
+def test_subprocess_dry_run_loads_no_jax_and_no_reference(tmp_path):
+    """The dry run (``launch.dryrun``, ``launch.flopcount``, ``_meta``) and
+    the sharded flash-decode it turns on with ``--opt`` run with nothing of
+    JAX or the JAX package loaded."""
+    code = (
+        "import sys\n"
+        "from repro_torch import _meta\n"
+        "from repro_torch.launch import dryrun, flopcount\n"
+        "try:\n"
+        "    dryrun.main(['--arch', 'h2o-danube-1.8b', '--shape', "
+        f"'decode_32k', '--mesh', 'single', '--opt', '--out', r'{tmp_path}'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "from repro_torch.models import layers\n"
+        "assert layers.SHARDED_DECODE_ATTN\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+        "m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "ISOLATED"
+    rec = json.loads((tmp_path / "h2o-danube-1.8b__decode_32k__single__opt"
+                      ".json").read_text())
+    assert rec["status"] == "ok" and rec["tag"] == "opt"
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

@@ -261,10 +261,63 @@ def test_decode_kernel_is_one_deterministic_launch(no_tf32, B, S, H, K, hd,
     torch.cuda.synchronize()
     assert da.decode_attention.launches == before + 3
     assert all(torch.equal(outs[0], o) for o in outs[1:])
-    assert not bool(da._counter_buffers[q.device].any())
+    assert da.tickets_at_zero(q.device)
     want = da.decode_attention_plain(q, k, v, k_valid)
     torch.testing.assert_close(outs[0].float(), want.float(),
                                **ATTN_TOL[dtype])
+
+
+# the log-sum-exp instances: one split and many, a k_valid on a split
+# boundary, every key masked (k_valid <= 0); the output is the unrounded
+# f32 of the instance without lse, bit for bit, and the lse is the plain
+# version's logsumexp within 1e-5
+@pytest.mark.parametrize("B,S,H,K,hd,k_valid", [
+    (2, 64, 4, 4, 16, 64), (1, 40, 4, 2, 64, 0), (4, 1064, 32, 8, 128, 1024),
+    (1, 8192, 64, 1, 64, 5000), (2, 1000, 25, 5, 80, -3),
+    (1, 2056, 8, 1, 256, 2050), (4, 1000, 40, 8, 128, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_lse_output(no_tf32, B, S, H, K, hd, k_valid, dtype):
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype, S + 3 * hd)
+    before = da.decode_attention.launches
+    out, lse = da.decode_attention(q, k, v, k_valid, return_lse=True)
+    plain = da.decode_attention(q, k, v, k_valid)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 2
+    assert out.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out.to(dtype), plain)
+    want_out, want_lse = da.decode_attention_plain(q, k, v, k_valid,
+                                                   return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, want_out, **ATTN_TOL[dtype])
+    assert da.tickets_at_zero(q.device)
+
+
+def test_decode_kernel_runs_on_two_streams_at_once(no_tf32):
+    """Two streams of one device run ``decode_attention`` at once on
+    different inputs, 8 calls each, queued behind a ~10 ms spin on each
+    stream so that their kernels meet: every output is bit-equal to the
+    same call run alone, and the tickets end at 0 (each stream has its
+    own)."""
+    from repro_torch.kernels import decode_attention as da
+    shapes = [(4, 1064, 32, 8, 128, 1024), (2, 2056, 8, 1, 256, 2050)]
+    inputs = [_attn_inputs((B, 1, H, hd), (B, S, K, hd), torch.bfloat16, i)
+              + [kv] for i, (B, S, H, K, hd, kv) in enumerate(shapes)]
+    alone = [da.decode_attention(*x) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for st in streams:
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(20_000_000)
+    for _ in range(8):
+        for i, (x, st) in enumerate(zip(inputs, streams)):
+            with torch.cuda.stream(st):
+                outs[i].append(da.decode_attention(*x))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, alone[i]) for o in outs[i]), i
+    assert da.tickets_at_zero(inputs[0][0].device)
 
 
 def test_decode_tile_is_the_wrappers(card):

@@ -11,13 +11,22 @@ One spawn of four processes (this file run as a script, one rank each, on a
   JAX's ``value_and_grad``;
 - a prefill and 4 decode steps of the reduced qwen3-4b (``PARAM_RULES``
   params, ``cache_pspecs`` caches), with ``ONEHOT_CACHE_UPDATE`` off and on,
-  against the JAX decode with the switch off and on.
+  against the JAX decode with the switch off and on;
+- a prefill of 16 tokens and 8 decode steps of the reduced qwen3-4b (GQA)
+  and deepseek-v2 (absorbed MLA) on a 40-slot cache sharded over ``model``
+  (20 slots a rank: k_valid 17 .. 24 crosses the boundary, so the second
+  shard is wholly masked at first), with ``SHARDED_DECODE_ATTN`` off and
+  on, against each other and against the JAX package's ``shard_map``
+  flash-decode on 4 forced host devices (a subprocess: this process keeps
+  one JAX device), with the collectives of every switched-on step recorded;
+- ``sharded_decode_attention`` alone at k_valid 1, 20, 21 and 40 of 40.
 
 Each rank records the layouts its hooks and kernel wrappers saw: the
 residual stream sharded over the sequence by ``constrain_seq``, whole
 again at every attention call, and the MoE constraints' redistributions.
 """
 
+import math
 import os
 import pickle
 import subprocess
@@ -47,6 +56,7 @@ from repro_torch.configs.registry import get_config as t_get_config
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.launch import flopcount
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import decoder, layers
 from repro_torch.models.convert import from_jax
@@ -63,6 +73,13 @@ B, S = 4, 32              # training batch: both divide over the 2 x 2 mesh
 DEC_B, DEC_S, STEPS = 4, 16, 4
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 LOSS_REL, GRAD, M_TOL, V_TOL, DEC_TOL = 1e-5, 1e-5, 1e-4, 2e-4, 1e-4
+# the sharded flash-decode: a 40-slot cache, 20 a model rank; a prefill of
+# 16 tokens, then k_valid 17 .. 24
+SD_ARCHS = ["qwen3-4b", "deepseek-v2-236b"]
+SD_BUF, SD_PRE, SD_STEPS, SD_TOL = 40, 16, 8, 1e-5
+SD_KVALID = [1, 20, 21, 40]
+# (H, K, hd, hd_v) of the alone holds: GQA, and MLA's absorbed shape
+SD_SHAPES = [(4, 2, 16, 16), (4, 1, 40, 32)]
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +223,84 @@ def _decode_case(mesh, params_np, tokens_np, step_tokens):
     return out
 
 
+def _switch_case(mesh, arch, params_np, tokens_np, step_tokens):
+    """The reduced ``arch``'s prefill and decode steps with
+    ``SHARDED_DECODE_ATTN`` off and on: the logits of every step, and the
+    numels of the all-gathers of every decode step."""
+    cfg = t_reduced(t_get_config(arch))
+    model = build_model(cfg, device="cpu")
+    params = from_jax(params_np, cfg, device="cpu")
+    dparams = sh.distribute(params, sh.to_shardings(
+        sh.param_pspecs(params, mesh), mesh))
+    absorb = cfg.mla is not None
+
+    def on_mesh(batch):
+        return sh.distribute(batch, sh.to_shardings(
+            sh.batch_pspecs(batch, mesh), mesh))
+
+    out, merged, sharded = {}, [], layers.sharded_decode_attention
+
+    def counted(*args):
+        o = sharded(*args)
+        merged.append(o is not None)
+        return o
+
+    layers.sharded_decode_attention = counted
+    for on in (False, True):
+        layers.SHARDED_DECODE_ATTN = on
+        sh.set_active_mesh(mesh)
+        merged.clear()
+        try:
+            logits, caches = model.prefill(
+                dparams, on_mesh({"tokens": torch.from_numpy(tokens_np)}))
+            template = model.init_cache(DEC_B, SD_BUF)
+            caches = pad_cache(caches, sh.distribute(
+                template, sh.to_shardings(sh.cache_pspecs(template, mesh),
+                                          mesh)))
+            steps, gathers = [_full(logits)], []
+            for i, tok in enumerate(step_tokens):
+                token = on_mesh({"token": torch.from_numpy(tok)})["token"]
+                with flopcount.Counter() as seen:
+                    logits, caches = model.decode(
+                        dparams, caches, {"token": token,
+                                          "pos": SD_PRE + i},
+                        absorb_mla=absorb)
+                gathers.append([math.prod(shape)
+                                for kind, shapes in seen.collective_shapes
+                                if kind == "all-gather" for shape in shapes])
+                steps.append(_full(logits))
+        finally:
+            sh.set_active_mesh(None)
+            layers.SHARDED_DECODE_ATTN = False
+        out[on] = {"logits": steps, "gathers": gathers, "merged": list(merged)}
+    layers.sharded_decode_attention = sharded
+    return out
+
+
+def _alone_case(mesh):
+    """``sharded_decode_attention`` on its own: for each of ``SD_SHAPES``
+    and ``SD_KVALID``, (q, k, v, the gathered output)."""
+    g = torch.Generator().manual_seed(11)
+    out = []
+    for H, K, hd, hd_v in SD_SHAPES:
+        q = torch.randn((DEC_B, 1, H, hd), generator=g)
+        k = torch.randn((DEC_B, SD_BUF, K, hd), generator=g)
+        v = torch.randn((DEC_B, SD_BUF, K, hd_v), generator=g)
+        dq = sh.distribute(q, (mesh, sh.placements(sh.P("data"), mesh)))
+        kv_sh = (mesh, sh.placements(sh.P("data", "model"), mesh))
+        dk, dv = sh.distribute(k, kv_sh), sh.distribute(v, kv_sh)
+        for k_valid in SD_KVALID:
+            sh.set_active_mesh(mesh)
+            try:
+                o = sh.sharded_decode_attention(dq, dk, dv, k_valid)
+            finally:
+                sh.set_active_mesh(None)
+            out.append(((H, K, hd, hd_v), k_valid, q.numpy(), k.numpy(),
+                        v.numpy(), o.full_tensor().numpy(),
+                        [repr(p) for p in o.placements]))
+    return out
+
+
 def rank_main(rank, store, inputs, output):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -217,12 +312,52 @@ def rank_main(rank, store, inputs, output):
             cases = pickle.load(f)
         result = {"train": {arch: _train_case(mesh, arch, *cases["train"][arch])
                             for arch in TRAIN_ARCHS},
-                  "decode": _decode_case(mesh, *cases["decode"])}
+                  "decode": _decode_case(mesh, *cases["decode"]),
+                  "switch": {arch: _switch_case(mesh, arch,
+                                                *cases["switch"][arch])
+                             for arch in SD_ARCHS},
+                  "alone": _alone_case(mesh)}
     finally:
         dist.destroy_process_group()
     if rank == 0:
         with open(output, "wb") as f:
             pickle.dump(result, f)
+
+
+def jax_main(inputs, output):
+    """The JAX package's prefill and decode of each of ``SD_ARCHS`` with its
+    ``SHARDED_DECODE_ATTN`` on: ``shard_map`` on a (2, 2) ``data x model``
+    mesh of 4 host devices (``XLA_FLAGS`` set by the parent), params and
+    caches placed by its own specs."""
+    from repro.distributed import sharding as jsh
+    from repro.launch.mesh import make_mesh as jax_make_mesh
+
+    with open(inputs, "rb") as f:
+        cases = pickle.load(f)["switch"]
+    mesh = jax_make_mesh((2, 2), ("data", "model"))
+    jax_layers.SHARDED_DECODE_ATTN = True
+    jsh.set_active_mesh(mesh)
+    out = {}
+    for arch in SD_ARCHS:
+        jp, tokens, step_tokens = cases[arch]
+        jcfg = reduced(get_config(arch))
+        jm = jax_build_model(jcfg)
+        jp = jax.device_put(jp, jsh.to_shardings(jsh.param_pspecs(jp, mesh),
+                                                 mesh))
+        logits, caches = jm.prefill(jp, {"tokens": jnp.asarray(tokens)})
+        caches = jax_pad_cache(caches, jm.init_cache(DEC_B, SD_BUF))
+        caches = jax.device_put(caches, jsh.to_shardings(
+            jsh.cache_pspecs(caches, mesh), mesh))
+        steps = [np.asarray(logits)]
+        for i, tok in enumerate(step_tokens):
+            logits, caches = jm.decode(
+                jp, caches, {"token": jnp.asarray(tok),
+                             "pos": jnp.int32(SD_PRE + i)},
+                absorb_mla=jcfg.mla is not None)
+            steps.append(np.asarray(logits))
+        out[arch] = steps
+    with open(output, "wb") as f:
+        pickle.dump(out, f)
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +437,27 @@ def ranks(tmp_path_factory):
     finally:
         jax_layers.ONEHOT_CACHE_UPDATE = saved
     cases["decode"] = (jp, tokens, step_tokens)
+    cases["switch"] = {}
+    for j, arch in enumerate(SD_ARCHS):
+        jcfg = reduced(get_config(arch))
+        jm = jax_build_model(jcfg)
+        jp = jax.tree.map(np.asarray,
+                          jm.init_params(jax.random.PRNGKey(30 + j)))
+        tokens = np.random.default_rng(30 + j).integers(
+            0, jcfg.vocab, (DEC_B, SD_PRE)).astype(np.int32)
+        absorb = jcfg.mla is not None
+        # the greedy tokens of the unsharded JAX run, fed to every run
+        logits, caches = jm.prefill(jp, {"tokens": jnp.asarray(tokens)})
+        caches = jax_pad_cache(caches, jm.init_cache(DEC_B, SD_BUF))
+        step_tokens = []
+        for i in range(SD_STEPS):
+            tok = np.asarray(jnp.argmax(logits, -1)).astype(np.int32)[:, None]
+            step_tokens.append(tok)
+            logits, caches = jm.decode(
+                jp, caches, {"token": jnp.asarray(tok),
+                             "pos": jnp.int32(SD_PRE + i)},
+                absorb_mla=absorb)
+        cases["switch"][arch] = (jp, tokens, step_tokens)
 
     inputs, output = tmp / "inputs.pkl", tmp / "result.pkl"
     with open(inputs, "wb") as f:
@@ -315,6 +471,12 @@ def ranks(tmp_path_factory):
         [sys.executable, __file__, str(r), str(tmp / "store"), str(inputs),
          str(output)], env=env, cwd=str(ROOT), stdout=logs[r],
         stderr=subprocess.STDOUT) for r in range(WORLD)]
+    jax_log = open(tmp / "jax.log", "w")
+    procs.append(subprocess.Popen(
+        [sys.executable, __file__, "jax", str(inputs), str(tmp / "jax.pkl")],
+        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4"),
+        cwd=str(ROOT), stdout=jax_log, stderr=subprocess.STDOUT))
+    logs.append(jax_log)
     deadline = time.monotonic() + TIMEOUT + 30
     try:
         for p in procs:
@@ -328,9 +490,11 @@ def ranks(tmp_path_factory):
                 p.wait()
         for f in logs:
             f.close()
-    tails = "\n".join((tmp / f"rank{r}.log").read_text()[-3000:]
-                      for r in range(WORLD))
+    tails = "\n".join((tmp / name).read_text()[-3000:] for name in
+                      [f"rank{r}.log" for r in range(WORLD)] + ["jax.log"])
     assert all(p.returncode == 0 for p in procs), tails
+    with open(tmp / "jax.pkl", "rb") as f:
+        ref["switch"] = pickle.load(f)
     with open(output, "rb") as f:
         return pickle.load(f), ref
 
@@ -415,5 +579,66 @@ def test_the_one_hot_cache_write_is_bit_equal_to_the_slot_write(ranks):
         assert np.array_equal(a.view(np.int32), b.view(np.int32)), step
 
 
+def _gathered_cache_numels(arch):
+    """The numels of one layer's cache leaves made whole on the sequence on
+    a rank (its batch shard: DEC_B over the 2-way data axis), and of the
+    absorbed decode's concatenated latent keys: the all-gathers that the
+    gathered decode makes and the sharded one must not."""
+    cfg = t_reduced(t_get_config(arch))
+    b_loc = DEC_B // 2
+    if cfg.mla is None:
+        return {b_loc * SD_BUF * cfg.n_kv_heads * cfg.head_dim}
+    R, rope = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+    return {b_loc * SD_BUF * n for n in (R, rope, R + rope)}
+
+
+@pytest.mark.parametrize("arch", SD_ARCHS)
+def test_the_sharded_flash_decode_matches_the_gathered_one(ranks, arch):
+    case = ranks[0]["switch"][arch]
+    off, on = case[False]["logits"], case[True]["logits"]
+    assert len(on) == len(off) == SD_STEPS + 1
+    # every decode step of every layer merged shards; none with the switch off
+    n_layers = t_reduced(t_get_config(arch)).n_layers
+    assert case[True]["merged"] == [True] * (n_layers * SD_STEPS)
+    assert case[False]["merged"] == []
+    for step, (a, b) in enumerate(zip(on, off)):
+        assert _rel(a, b) <= SD_TOL, (step, _rel(a, b))
+
+
+@pytest.mark.parametrize("arch", SD_ARCHS)
+def test_the_sharded_flash_decode_matches_jax_shard_map(ranks, arch):
+    got, want = ranks[0]["switch"][arch][True]["logits"], ranks[1]["switch"][arch]
+    assert len(got) == len(want) == SD_STEPS + 1
+    for step, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= SD_TOL, (step, _rel(g, w))
+
+
+@pytest.mark.parametrize("arch", SD_ARCHS)
+def test_the_sharded_flash_decode_gathers_no_cache(ranks, arch):
+    case, sizes = ranks[0]["switch"][arch], _gathered_cache_numels(arch)
+    for step, numels in enumerate(case[True]["gathers"]):
+        assert not sizes & set(numels), (step, numels)
+    if arch == "qwen3-4b":      # the gathered decode does gather it
+        assert all(sizes & set(n) for n in case[False]["gathers"])
+
+
+@pytest.mark.parametrize("shape", SD_SHAPES, ids=["gqa", "mla"])
+def test_sharded_decode_attention_alone(ranks, shape):
+    from repro_torch.models.common import naive_attention
+    cases = [c for c in ranks[0]["alone"] if c[0] == shape]
+    assert [c[1] for c in cases] == SD_KVALID
+    for _, k_valid, q, k, v, got, placements in cases:
+        q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+        if shape[2] == shape[3] and shape[2] in flash_mod.HEAD_DIMS:
+            want = decode_mod.decode_attention_plain(q, k, v, k_valid)
+        else:
+            want = naive_attention(q, k, v, causal=False, k_valid=k_valid)
+        assert _rel(got, want.numpy()) <= SD_TOL, (k_valid, _rel(got, want))
+        assert placements == ["Shard(dim=0)", "Replicate()"]
+
+
 if __name__ == "__main__":
-    rank_main(int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4])
+    if sys.argv[1] == "jax":
+        jax_main(sys.argv[2], sys.argv[3])
+    else:
+        rank_main(int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4])

@@ -315,9 +315,10 @@ def test_mesh_phase_runs_on_the_cpu(rehearsal, capsys):
     """Phase 5h on the reduced qwen3-4b, phi3.5-moe and rwkv6 in bf16 with
     remat on a (1, 1) mesh of a world-size-1 ``gloo`` group: every step's
     loss and grad norm, every param, m and v leaf, and the serving run's
-    logits (the slot write and the one-hot write) bit-equal to the plain
-    tensors' through the same counted wrappers, the launches equal; the
-    group is gone afterwards and no mesh is left active."""
+    logits (the slot write, the one-hot write and the sharded
+    flash-decode) bit-equal to the plain tensors' through the same counted
+    wrappers, the launches equal; the group is gone afterwards and no mesh
+    is left active."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as sh
     cells = [(dataclasses.replace(train_configs(arch)[0], n_layers=n), steps)
@@ -334,8 +335,12 @@ def test_mesh_phase_runs_on_the_cpu(rehearsal, capsys):
     assert paths["mesh train rwkv6-1.6b"]["rwkv_scan_bwd"] == 2
     assert paths["mesh serve qwen3-4b"] == {
         "flash_attention": 2 * 2, "decode_attention": 2 * 2 * 8}
+    # the sharded flash-decode: the same launches, every step merged
+    assert paths["mesh serve qwen3-4b sharded-decode"] == paths[
+        "mesh serve qwen3-4b"]
     out = capsys.readouterr().out
     assert out.count("mesh_train ") == 3 and "mesh_serve " in out
+    assert '"merges": 32, "calls": 32' in out
 
 
 def test_children_take_turns_in_the_order_they_were_started():

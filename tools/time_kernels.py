@@ -17,7 +17,10 @@ profiler's device ms of one call, averaged over 25.
 - ``decode_attention`` (within ``chip_smoke.ATTN_TOL``, bf16 and f32) at
   [B, S, H, K, hd, k_valid] = the serving buffer [4, 1064, 32, 8, 128] at
   k_valid 1, 1025, 1064 and 1040 (the serving path's mean step), a ragged
-  hd-80 buffer, hd-256 MQA, G = 5 and k_valid 1024;
+  hd-80 buffer, hd-256 MQA, G = 5 and k_valid 1024, and the rest of the
+  checkout's ``chip_smoke.DECODE_HOLDS``; each output's sha256 (its first
+  16 hex digits) beside its time, so that two checkouts' outputs can be
+  compared bit for bit;
 - ``rwkv_scan`` (bit for bit, f32 and bf16) at [B, S, H, hd] =
   [4, 1024, 32, 64] from zeros, [4, 1, 32, 64], [2, 1000, 8, 64],
   [2, 333, 8, 16] and [1, 515, 2, 64] from a random state;
@@ -43,6 +46,7 @@ give both in turns, parent first and last:
 ``python3 tools/time_kernels.py build/parent . . build/parent``.
 """
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -106,11 +110,16 @@ def time_checkout(root, only=GROUPS):
                 score, "tick_score_kernel")
             del inputs
             torch.cuda.empty_cache()
-    for B, S, H, K, hd, k_valid in pick("decode", DECODE):
+    decode = DECODE + tuple(s for s in cs.DECODE_HOLDS if s not in DECODE)
+    for B, S, H, K, hd, k_valid in pick("decode", decode):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = cs.attn_inputs((B, 1, H, hd), (B, S, K, hd), dtype,
                                      S + hd)
-            got = da.decode_attention(q, k, v, k_valid).float()
+            raw = da.decode_attention(q, k, v, k_valid)
+            out[f"decode {B},{S},{H},{K},{hd},{k_valid} {dtype} sha256"] = (
+                hashlib.sha256(raw.view(torch.uint8).cpu().numpy()
+                               .tobytes()).hexdigest()[:16])
+            got = raw.float()
             want = da.decode_attention_plain(q, k, v, k_valid).float()
             rtol, atol = cs.ATTN_TOL[str(dtype).split(".")[1]]
             if not bool(((got - want).abs() <= atol + rtol * want.abs())
